@@ -1,0 +1,76 @@
+"""Dirichlet boundary conditions via row masking.
+
+Replaces dolfin::DirichletBC application (row replacement in the Newton
+system).  The constrained residual entry becomes ``u - value`` and the
+Jacobian row becomes the identity row, which reproduces DOLFIN's
+NonlinearVariationalSolver behavior exactly: the Newton update drives the
+constrained dof to its value in one step and keeps it there.
+
+Masks are fixed per mesh (sparsity-defining); values are device tensors so
+per-step BC updates (the Sechenov CO2 Dirichlet value,
+3D/MPNP_CO2ER_pore.py:835-838) stay on the device.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from gmpnp_tpu_torch.fem.assembly import BlockELL
+
+
+class DirichletBC(NamedTuple):
+    mask: torch.Tensor    # (N, fields) bool — constrained dofs
+    values: torch.Tensor  # (N, fields) — target values (entries off-mask ignored)
+
+    @staticmethod
+    def from_vertex_sets(
+        num_vertices: int,
+        n_fields: int,
+        entries: Sequence[Tuple[np.ndarray, int, float]],
+        device="cpu",
+    ) -> "DirichletBC":
+        """Build from (vertex_ids, field, value) triples (later entries win
+        on shared vertices)."""
+        mask = np.zeros((num_vertices, n_fields), dtype=bool)
+        vals = np.zeros((num_vertices, n_fields))
+        for verts, fld, val in entries:
+            mask[verts, fld] = True
+            vals[verts, fld] = val
+        return DirichletBC(
+            torch.as_tensor(mask, device=device),
+            torch.as_tensor(vals, dtype=torch.float64, device=device))
+
+    def set_value(self, verts, fld: int, value) -> "DirichletBC":
+        """Functionally update the value on a vertex set; ``value`` may be a
+        float or a 0-d tensor on the BC's device."""
+        vals = self.values.clone()
+        vals[verts, fld] = value
+        return DirichletBC(self.mask, vals)
+
+    def apply_to_residual(self, r: torch.Tensor,
+                          u: torch.Tensor) -> torch.Tensor:
+        return torch.where(self.mask, u - self.values, r)
+
+    def apply_to_jacobian(self, J: BlockELL) -> BlockELL:
+        """Zero constrained rows and place 1 on their diagonal entries."""
+        N, f, Kf = J.flat.shape
+        flat = torch.where(self.mask[:, :, None],
+                           torch.zeros((), dtype=J.flat.dtype,
+                                       device=J.flat.device), J.flat)
+        # constrained (n, r): set flat[n, r, diag_slot[n]*f + r] = 1
+        rows = torch.arange(N, device=flat.device)[:, None].expand(N, f)
+        rr = torch.arange(f, device=flat.device)[None, :].expand(N, f)
+        cols = J.diag_slot[:, None] * f + rr
+        vals = torch.where(self.mask,
+                           torch.ones((), dtype=flat.dtype,
+                                      device=flat.device),
+                           flat[rows, rr, cols])
+        flat[rows, rr, cols] = vals
+        return BlockELL(adj=J.adj, flat=flat, diag_slot=J.diag_slot)
+
+    def project(self, u: torch.Tensor) -> torch.Tensor:
+        """Force constrained dofs to their values."""
+        return torch.where(self.mask, self.values, u)

@@ -1,0 +1,14 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
+version.
+
+Kernels:
+- ell_spmv: block-ELL matvec with the neighbour gather fused in
+  (``csrc/ell_spmv.cu``, f32 and f64) — the port of
+  ``gmpnp_tpu/ops/ell_spmv.py::ell_block_contract_pallas``.  It is the
+  matvec of the carried-mode f32 chord GMRES (``solve.slab.slab_apply_f32``)
+  and of ``fem.assembly.BlockELL.matvec`` on CUDA tensors.
+"""
+
+from gmpnp_tpu_torch.ops.ell_spmv import LAUNCHES, ell_spmv, ell_spmv_reference
+
+__all__ = ["LAUNCHES", "ell_spmv", "ell_spmv_reference"]

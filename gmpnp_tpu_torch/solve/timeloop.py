@@ -1,0 +1,525 @@
+"""Implicit time integration loop.
+
+Backward-Euler transient with a damped Newton solve per step.  The
+reference compiles the whole transient into one ``lax.scan``; here it is a
+Python loop over steps that runs eagerly on the tensors' device.
+
+Data-dependent per-step behavior of the reference — staged dt schedules,
+Sechenov Dirichlet updates (3D/MPNP_CO2ER_pore.py:815-838) — enters through
+``theta``: a dict produced per step by a model-supplied carry update.
+
+Ported so far: the 3D slab path (``kind='slab_direct'`` with
+``refresh`` in {'iter', 'step', 'carried'}) and the dense test solver.  The
+1D kinds, the Krylov kinds and ``calibrate_refresh`` (``refresh='auto'``)
+are still to be ported (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Callable, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from gmpnp_tpu_torch.fem.assembly import FemSpace
+from gmpnp_tpu_torch.fem.dirichlet import DirichletBC
+from gmpnp_tpu_torch.fem.forms import WeakForm
+from gmpnp_tpu_torch.solve.linear import dense_solve
+from gmpnp_tpu_torch.solve.newton import newton_solve
+from gmpnp_tpu_torch.solve.slab import (
+    SlabPlan,
+    full_f32_precision,
+    slab_apply,
+    slab_apply_f32,
+    slab_direct_solve,
+    slab_prepare,
+)
+from gmpnp_tpu_torch.sync import to_host
+
+
+@dataclass(frozen=True)
+class NewtonConfig:
+    """Mirror of the reference solver_parameters newton_solver blocks (the
+    fields and defaults of ``gmpnp_tpu.solve.timeloop.NewtonConfig``, less
+    ``loop``: the iteration is one Python loop here)."""
+    max_iter: int = 50
+    rtol: float = 1.0e-4
+    atol: float = 1.0e-4
+    relaxation: float = 1.0
+    # backtracking halvings per iteration (0 = plain damped Newton)
+    backtracking: int = 0
+    # backtracking acceptance: 0.0 = strict Armijo; g > 0 = bounded growth
+    bt_growth: float = 0.0
+    # assemble the residual once per iteration
+    carry_residual: bool = True
+    # cap on ||du||_inf per Newton update; None disables
+    du_max: Optional[float] = 1.0e6
+    # stagnation acceptance bound (None = off) and its patience
+    stall_atol: Optional[float] = None
+    stall_iters: int = 4
+
+
+@dataclass(frozen=True)
+class LinearConfig:
+    """Linear-solver selection per model: the fields and defaults of
+    ``gmpnp_tpu.solve.timeloop.LinearConfig`` that the ported kinds read
+    (see its docstring).
+
+    Ported: kind 'slab_direct' (z-slab mixed-precision direct solver,
+    solve.slab) and 'dense' (tests), refresh 'iter' (exact Newton), 'step'
+    (one factorization per step) and 'carried' (factorization carried
+    across steps, chord Newton — ``make_carried_step``).  The Krylov-kind
+    fields (atol, restart, maxiter, precond, ssor_sweeps, solve_dtype)
+    come with those kinds (ROADMAP queue 1).  The reference's ``matvec``
+    selector has no counterpart: a CUDA tensor always takes the kernel."""
+    kind: str = "tridiag_cr"
+    tol: float = 1.0e-8
+    max_refine: int = 40
+    max_slabs: Optional[int] = None
+    slab_mode: str = "thomas"
+    refresh: str = "iter"
+    refresh_iters: int = 8
+    chord_max_iter: int = 16
+    chord_tol: Optional[float] = 1.0e-6
+    chord_dtype: str = "f32"
+    chord_predict: bool = True
+    jac_dtype: str = "f64"
+
+
+class StepStats(NamedTuple):
+    newton_iters: int
+    converged: bool
+    residual_norm: float
+    linear_iters: int
+    # dt actually used / scheduled dt: 1.0 on the plain path; 0.5**k after
+    # k divergence-triggered halvings by make_recovering_step
+    dt_scale: Any = 1.0
+
+
+_LINEAR_KINDS = ("tridiag_cr", "tridiag_thomas", "dense", "slab_direct",
+                 "gmres", "bicgstab")
+_PORTED_KINDS = ("dense", "slab_direct")
+
+
+def _validate_linear_config(cfg: LinearConfig) -> None:
+    """Fail fast on unrecognized string knobs, and on settings whose code
+    is still to be ported."""
+    if cfg.kind not in _LINEAR_KINDS:
+        raise ValueError(
+            f"unknown linear solver kind {cfg.kind!r}; one of {_LINEAR_KINDS}")
+    if cfg.refresh not in ("iter", "step", "carried", "auto"):
+        raise ValueError(f"refresh must be 'iter', 'step', 'carried' or "
+                         f"'auto', got {cfg.refresh!r}")
+    if cfg.slab_mode not in ("thomas", "cr"):
+        raise ValueError(f"slab_mode must be 'thomas' or 'cr', got "
+                         f"{cfg.slab_mode!r}")
+    for name in ("jac_dtype", "chord_dtype"):
+        if getattr(cfg, name) not in ("f32", "f64"):
+            raise ValueError(f"{name} must be 'f32' or 'f64', got "
+                             f"{getattr(cfg, name)!r}")
+    if cfg.kind not in _PORTED_KINDS:
+        raise NotImplementedError(
+            f"linear kind {cfg.kind!r} is still to be ported (ROADMAP "
+            f"queue 1: 1D solvers item 10, Krylov kinds item 15)")
+    if cfg.jac_dtype != "f64":
+        raise NotImplementedError(
+            "jac_dtype='f32' is still to be ported (ROADMAP queue 1)")
+
+
+def _dt_of(theta, dt_key: str = "dt") -> float:
+    """The step's dt as a float; theta[dt_key] may be a float or a 0-d
+    tensor."""
+    if isinstance(theta, dict) and dt_key in theta:
+        return float(to_host(theta[dt_key]))
+    return 1.0
+
+
+def _slab_plan(space: FemSpace, cfg: LinearConfig) -> SlabPlan:
+    return SlabPlan.build(
+        np.asarray(space.adj), np.asarray(space.points)[:, -1],
+        space.n_fields, np.asarray(space.diag_slot),
+        max_slabs=cfg.max_slabs)
+
+
+def make_linear_solver(space: FemSpace, form: WeakForm, cfg: LinearConfig):
+    """(bc, u_prev, theta) -> callable (u, r) -> (du, linear_iters)."""
+    _validate_linear_config(cfg)
+    if cfg.refresh == "carried":
+        raise ValueError(
+            "refresh='carried' carries the factorization across time steps "
+            "and needs the stateful step protocol — build the step with "
+            "make_carried_step (models wire this automatically)")
+    if cfg.refresh == "auto":
+        raise ValueError(
+            "refresh='auto' must be resolved to a concrete mode before "
+            "building a step")
+    full_f32_precision()
+    slab_plan = _slab_plan(space, cfg) if cfg.kind == "slab_direct" else None
+
+    def solver(bc: DirichletBC, u_prev, theta):
+        aux = theta.get("_aux") if isinstance(theta, dict) else None
+
+        def assemble(u):
+            return bc.apply_to_jacobian(
+                space.jacobian(form, u, u_prev, theta, aux=aux))
+
+        if cfg.kind == "slab_direct" and cfg.refresh == "step":
+            # modified Newton: factor once at the step's start iterate,
+            # reuse for all iterations
+            prep = slab_prepare(assemble(bc.project(u_prev)), slab_plan,
+                                mode=cfg.slab_mode)
+
+            def lin_frozen(u, r):
+                res = slab_apply(prep, r, slab_plan, tol=cfg.tol,
+                                 max_refine=cfg.max_refine)
+                return res.x, res.iters
+
+            return lin_frozen
+
+        def lin(u, r):
+            ell = assemble(u)
+            if cfg.kind == "dense":
+                return dense_solve(ell, r), 0
+            res = slab_direct_solve(ell, r, slab_plan, tol=cfg.tol,
+                                    max_refine=cfg.max_refine,
+                                    mode=cfg.slab_mode)
+            return res.x, res.iters
+
+        return lin
+
+    return solver
+
+
+def _newton_kwargs(newton_cfg: NewtonConfig) -> dict:
+    return dict(rtol=newton_cfg.rtol, atol=newton_cfg.atol,
+                relaxation=newton_cfg.relaxation,
+                backtracking=newton_cfg.backtracking,
+                bt_growth=newton_cfg.bt_growth,
+                carry_residual=newton_cfg.carry_residual,
+                du_max=newton_cfg.du_max, stall_atol=newton_cfg.stall_atol,
+                stall_iters=newton_cfg.stall_iters)
+
+
+def make_implicit_step(
+    space: FemSpace,
+    form: WeakForm,
+    newton_cfg: NewtonConfig,
+    linear_cfg: LinearConfig,
+    bc_of_theta: Callable[[Any], DirichletBC],
+):
+    """Build the per-step solve: (u_prev, theta) -> (u_new, StepStats)."""
+    lin_builder = make_linear_solver(space, form, linear_cfg)
+
+    def step(u_prev: torch.Tensor, theta) -> Tuple[torch.Tensor, StepStats]:
+        bc = bc_of_theta(theta)
+        aux = theta.get("_aux") if isinstance(theta, dict) else None
+
+        def residual(u):
+            return bc.apply_to_residual(
+                space.residual(form, u, u_prev, theta, aux=aux), u)
+
+        lin = lin_builder(bc, u_prev, theta)
+        res = newton_solve(residual, lin, bc.project(u_prev),
+                           max_iter=newton_cfg.max_iter,
+                           **_newton_kwargs(newton_cfg))
+        stats = StepStats(
+            newton_iters=res.iterations,
+            converged=res.converged,
+            residual_norm=res.residual_norm,
+            linear_iters=res.linear_iters)
+        return res.u, stats
+
+    return step
+
+
+class ChordCarry(NamedTuple):
+    """State of the carried-factor chord Newton step, threaded from step to
+    step (all of it derived data):
+
+    - ``prep``: the stale factorization (solve.slab.SlabPrepared);
+    - ``du``: the previous accepted step's increment u_n - u_{n-1} (zeros
+      at init — the first step predicts u_prev);
+    - ``dt_prev``: the dt that produced ``du``;
+    - ``du_nrm_prev``: ||u_{n-1} - u_{n-2}||, for the decay estimate
+      rho = ||du|| / du_nrm_prev of the chord predictor.
+    """
+    prep: Any
+    du: torch.Tensor
+    dt_prev: float
+    du_nrm_prev: float
+
+
+def make_carried_step(
+    space: FemSpace,
+    form: WeakForm,
+    newton_cfg: NewtonConfig,
+    linear_cfg: LinearConfig,
+    bc_of_theta: Callable[[Any], DirichletBC],
+    dt_key: str = "dt",
+):
+    """Carried-factor transient step (``LinearConfig.refresh='carried'``).
+
+    Returns ``(step, prep_init)`` where
+
+        step: (u_prev, theta, carry) -> (u_new, StepStats, carry_new)
+        prep_init: (u0, theta) -> ChordCarry
+
+    Each step first runs Newton against the carried (stale) factorization —
+    a chord iteration certified on the true f64 residual, with a budget of
+    ``linear_cfg.chord_max_iter`` iterations, started from the decay-scaled
+    extrapolation ``u_prev + clip(rho*dt/dt_prev, 0, 1.5) * du`` when
+    ``chord_predict``.  With ``chord_dtype='f32'`` the chord directions
+    come from ``slab_apply_f32`` (f32 GMRES whose matvec is the block-ELL
+    kernel).  The factorization is rebuilt only when
+
+    - the chord attempt does not converge: the step is re-solved with exact
+      Newton from the safe u_prev (identical to refresh='iter') and the
+      factor is refreshed at the accepted state; or
+    - it converges but needs more than ``linear_cfg.refresh_iters``
+      iterations (the factor is refreshed for the next step).
+    """
+    _validate_linear_config(linear_cfg)
+    if linear_cfg.kind != "slab_direct":
+        raise NotImplementedError(
+            f"make_carried_step: kind {linear_cfg.kind!r} — the 1D carried "
+            f"step (tridiag_cr) is still to be ported (ROADMAP queue 1 "
+            f"item 10)")
+    full_f32_precision()
+    plan = _slab_plan(space, linear_cfg)
+
+    def prep_of(u, u_prev, theta, bc):
+        aux = theta.get("_aux") if isinstance(theta, dict) else None
+        ell = bc.apply_to_jacobian(
+            space.jacobian(form, u, u_prev, theta, aux=aux))
+        return slab_prepare(ell, plan, mode=linear_cfg.slab_mode)
+
+    def prep_init(u0, theta):
+        bc = bc_of_theta(theta)
+        return ChordCarry(
+            prep=prep_of(bc.project(u0), u0, theta, bc),
+            du=torch.zeros_like(u0),
+            dt_prev=_dt_of(theta, dt_key),
+            du_nrm_prev=0.0)
+
+    # exact-Newton fallback: per-iterate assemble+factor, as refresh='iter'
+    exact_lin_builder = make_linear_solver(
+        space, form, dataclasses.replace(linear_cfg, refresh="iter"))
+
+    chord_tol = (linear_cfg.tol if linear_cfg.chord_tol is None
+                 else linear_cfg.chord_tol)
+    if linear_cfg.chord_dtype == "f32":
+        # the f32 Givens recursion stalls below ~1e-6 relative, so the
+        # tolerance is floored there (the reference's rule)
+        tol32 = max(chord_tol, 1.0e-6)
+
+        def lin_of(p):
+            def lin(u, r):
+                res = slab_apply_f32(
+                    p, r, plan, tol=tol32,
+                    max_refine=min(linear_cfg.max_refine, 16))
+                return res.x, res.iters
+            return lin
+    else:
+        def lin_of(p):
+            def lin(u, r):
+                res = slab_apply(p, r, plan, tol=chord_tol,
+                                 max_refine=linear_cfg.max_refine)
+                return res.x, res.iters
+            return lin
+
+    def step(u_prev, theta, carry):
+        prep = carry.prep
+        bc = bc_of_theta(theta)
+        aux = theta.get("_aux") if isinstance(theta, dict) else None
+
+        def residual(u):
+            return bc.apply_to_residual(
+                space.residual(form, u, u_prev, theta, aux=aux), u)
+
+        u0_safe = bc.project(u_prev)
+        nrm_du = to_host(torch.linalg.norm(carry.du))
+        if linear_cfg.chord_predict:
+            # decay-aware extrapolated start for the chord attempt only
+            dt = _dt_of(theta, dt_key)
+            rho = (nrm_du / max(carry.du_nrm_prev, 1e-300)
+                   if carry.du_nrm_prev > 0 else 0.0)
+            ratio = dt / carry.dt_prev if carry.dt_prev > 0 else 0.0
+            factor = min(max(rho * ratio, 0.0), 1.5)
+            u0_chord = bc.project(u_prev + factor * carry.du)
+        else:
+            u0_chord = u0_safe
+
+        res1 = newton_solve(
+            residual, lin_of(prep), u0_chord,
+            max_iter=min(linear_cfg.chord_max_iter, newton_cfg.max_iter),
+            **_newton_kwargs(newton_cfg))
+        if res1.converged:
+            res, prep_used = res1, prep
+        else:
+            # exact-Newton re-solve from the SAFE start
+            res = newton_solve(
+                residual, exact_lin_builder(bc, u_prev, theta), u0_safe,
+                max_iter=newton_cfg.max_iter, **_newton_kwargs(newton_cfg))
+            prep_used = prep_of(res.u, u_prev, theta, bc)
+
+        # proactive refresh for the NEXT step when the stale factor made
+        # this (converged) step slow
+        if res1.converged and res1.iterations > linear_cfg.refresh_iters:
+            prep_new = prep_of(res.u, u_prev, theta, bc)
+        else:
+            prep_new = prep_used
+
+        stats = StepStats(
+            newton_iters=res.iterations,
+            converged=res.converged,
+            residual_norm=res.residual_norm,
+            linear_iters=res.linear_iters)
+        carry_new = ChordCarry(prep=prep_new, du=res.u - u_prev,
+                               dt_prev=_dt_of(theta, dt_key),
+                               du_nrm_prev=nrm_du)
+        return res.u, stats, carry_new
+
+    return step, prep_init
+
+
+def _halved(theta, dt_key: str, k: int):
+    th = dict(theta)
+    th[dt_key] = theta[dt_key] * 0.5 ** k
+    return th
+
+
+def make_retrying_step(
+    step: Callable,
+    max_retries: int = 3,
+    dt_key: str = "dt",
+):
+    """Wrap a ``(u_prev, theta) -> (u_new, StepStats)`` step with
+    divergence-triggered dt halving: a non-converged attempt is retried
+    with ``theta[dt_key]`` halved, up to ``max_retries`` times.  Returns
+    ``(u_new, stats, dt_scale)`` for the accepted attempt."""
+
+    def retry_step(u_prev, theta):
+        k = 0
+        u, st = step(u_prev, theta)
+        while not st.converged and k < max_retries:
+            k += 1
+            u, st = step(u_prev, _halved(theta, dt_key, k))
+        return u, st, 0.5 ** k
+
+    return retry_step
+
+
+def make_recovering_step(
+    space: FemSpace,
+    form: WeakForm,
+    newton_cfg: NewtonConfig,
+    linear_cfg: LinearConfig,
+    bc_of_theta: Callable[[Any], DirichletBC],
+    max_retries: int = 3,
+):
+    """``make_implicit_step`` wrapped in ``make_retrying_step``, with the
+    accepted attempt's dt factor recorded in ``StepStats.dt_scale``."""
+    base = make_implicit_step(space, form, newton_cfg, linear_cfg,
+                              bc_of_theta)
+    retry = make_retrying_step(base, max_retries=max_retries)
+
+    def step(u_prev, theta):
+        u, st, scale = retry(u_prev, theta)
+        return u, st._replace(dt_scale=scale)
+
+    return step
+
+
+def make_recovering_carried_step(
+    space: FemSpace,
+    form: WeakForm,
+    newton_cfg: NewtonConfig,
+    linear_cfg: LinearConfig,
+    bc_of_theta: Callable[[Any], DirichletBC],
+    max_retries: int = 3,
+    dt_key: str = "dt",
+):
+    """Carried-factor step with divergence-triggered dt halving.  Each
+    retry rebuilds the carried factorization at the halved dt (prep_init,
+    which also zeroes du so the retry's chord attempt starts from the safe
+    u_prev)."""
+    base, prep_init = make_carried_step(space, form, newton_cfg,
+                                        linear_cfg, bc_of_theta)
+
+    def step(u_prev, theta, prep):
+        k = 0
+        u, st, p = base(u_prev, theta, prep)
+        while not st.converged and k < max_retries:
+            k += 1
+            th = _halved(theta, dt_key, k)
+            u, st, p = base(u_prev, th, prep_init(u_prev, th))
+        return u, st._replace(dt_scale=0.5 ** k), p
+
+    return step, prep_init
+
+
+def _stack(items):
+    """Stack per-step records: tensors along a new leading axis, tuples and
+    NamedTuples field by field, host scalars into numpy arrays."""
+    first = items[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(items)
+    if isinstance(first, tuple):
+        cols = [_stack([it[i] for it in items]) for i in range(len(first))]
+        return type(first)(*cols) if hasattr(first, "_fields") else tuple(cols)
+    return np.asarray(items)
+
+
+def run_transient(
+    step: Callable,
+    carry0,
+    n_steps: int,
+    update_carry: Optional[Callable] = None,
+    theta_of_carry: Optional[Callable] = None,
+    record: Optional[Callable] = None,
+    record_stride: int = 1,
+    step_state0=None,
+):
+    """Generic transient loop.
+
+    carry = (u, extra); per step i:
+        theta = theta_of_carry(carry, i)
+        u_new, stats = step(u, theta)
+        extra_new = update_carry(extra, u_new, i)
+        y = record(u_new, stats)
+
+    Returns (final_carry, stacked_ys), with every ``record_stride``-th
+    step's record (steps k-1, 2k-1, ...; requires k | n_steps).
+
+    ``step_state0`` opts into the stateful step protocol (the carried slab
+    factorization of ``make_carried_step``): the step is called as
+    ``step(u, theta, state) -> (u_new, stats, state_new)`` and the return
+    becomes ``((u_final, extra_final, state_final), stacked_ys)``.
+    """
+    if update_carry is None:
+        update_carry = lambda extra, u, i: extra
+    if theta_of_carry is None:
+        theta_of_carry = lambda carry, i: None
+    if record is None:
+        record = lambda u, stats: (u, stats)
+    k = max(record_stride, 1)
+    if n_steps % k:
+        raise ValueError(f"record_stride {k} must divide n_steps {n_steps}")
+
+    stateful = step_state0 is not None
+    u, extra = carry0
+    st = step_state0
+    ys = []
+    for i in range(n_steps):
+        theta = theta_of_carry((u, extra), i)
+        if stateful:
+            u, stats, st = step(u, theta, st)
+        else:
+            u, stats = step(u, theta)
+        extra = update_carry(extra, u, i)
+        if (i + 1) % k == 0:
+            ys.append(record(u, stats))
+    final = (u, extra, st) if stateful else (u, extra)
+    return final, (_stack(ys) if ys else None)

@@ -1,0 +1,86 @@
+"""Parity harness: relative-L2 comparators and read-only golden files.
+
+The goldens under ``tests/goldens/`` were written by the reference package.
+The port only reads them: :class:`GoldenFile` here never writes, and a
+missing golden is an error, not a pass.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, Optional
+
+import numpy as np
+
+
+def rel_l2(a: np.ndarray, b: np.ndarray) -> float:
+    """Relative L2 difference ||a-b|| / ||b|| (the BASELINE.json parity
+    metric)."""
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    denom = np.linalg.norm(b.reshape(-1))
+    if denom == 0:
+        return float(np.linalg.norm(a.reshape(-1)))
+    return float(np.linalg.norm((a - b).reshape(-1)) / denom)
+
+
+def field_summary(u: np.ndarray, names) -> Dict[str, Dict[str, float]]:
+    """Compact per-field fingerprint of a (N, f) state: robust scalars that
+    pin down the solution without storing the full field."""
+    u = np.asarray(u)
+    out = {}
+    for i, nm in enumerate(names):
+        col = u[:, i]
+        out[nm] = {
+            "min": float(col.min()),
+            "max": float(col.max()),
+            "mean": float(col.mean()),
+            "l2": float(np.linalg.norm(col)),
+            "first": float(col[0]),
+            "last": float(col[-1]),
+        }
+    return out
+
+
+class GoldenFile:
+    """A golden snapshot, read only: ``check`` compares every recorded
+    scalar at the given relative tolerance and raises FileNotFoundError
+    when the file is missing."""
+
+    def __init__(self, path: str, rtol: float = 1e-8, atol: float = 1e-10):
+        self.path = path
+        self.rtol = rtol
+        self.atol = atol
+
+    def check(self, data: Dict) -> Optional[str]:
+        """Returns None on match, else a message describing the first
+        mismatch."""
+        if not os.path.exists(self.path):
+            raise FileNotFoundError(f"golden file missing: {self.path}")
+        with open(self.path) as f:
+            ref = json.load(f)
+        return self._compare("", data, ref)
+
+    def _compare(self, prefix, got, ref):
+        if isinstance(ref, dict):
+            if not isinstance(got, dict):
+                return f"{prefix}: type changed"
+            for k in ref:
+                if k not in got:
+                    return f"{prefix}.{k}: missing"
+                msg = self._compare(f"{prefix}.{k}", got[k], ref[k])
+                if msg:
+                    return msg
+            return None
+        if isinstance(ref, float):
+            g = float(got)
+            if not np.isfinite(g) and not np.isfinite(ref):
+                return None
+            if abs(g - ref) > self.atol + self.rtol * abs(ref):
+                return (f"{prefix}: {g!r} != golden {ref!r} "
+                        f"(rtol {self.rtol})")
+            return None
+        if got != ref:
+            return f"{prefix}: {got!r} != golden {ref!r}"
+        return None

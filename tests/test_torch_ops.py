@@ -1,0 +1,125 @@
+"""The block-ELL kernel's plain version against the reference's Pallas
+kernel (interpret mode) and XLA contraction.  (The kernel itself against
+its plain version on a card: tests/test_torch_cuda.py.)
+
+Tolerances: f32 2e-5 and f64 1e-11 (summation order), as tests/test_ops.py;
+GMRES solutions 5e-4 relative (f32 Krylov to 1e-6, different rounding).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from gmpnp_tpu.fem import FemSpace as JFemSpace  # noqa: E402
+from gmpnp_tpu.fem.assembly import BlockELL as JBlockELL  # noqa: E402
+from gmpnp_tpu.mesh import cylinder_mesh, pore_boundary_markers  # noqa: E402
+from gmpnp_tpu.ops.ell_spmv import (  # noqa: E402
+    ell_block_contract_pallas,
+    ell_contract_dispatch,
+    ell_matvec_pallas,
+)
+from gmpnp_tpu.solve.linear import gmres as jgmres  # noqa: E402
+from gmpnp_tpu_torch.interop import blockell_from_numpy  # noqa: E402
+from gmpnp_tpu_torch.ops import LAUNCHES, ell_spmv  # noqa: E402
+from gmpnp_tpu_torch.ops.ell_spmv import ell_matvec  # noqa: E402
+from gmpnp_tpu_torch.solve.linear import gmres as tgmres  # noqa: E402
+
+TOL = {np.float32: 2e-5, np.float64: 1e-11}
+
+
+def _random_ell(N, K, f, dtype, seed):
+    rng = np.random.default_rng(seed)
+    blocks = rng.normal(size=(N, K, f, f)).astype(dtype)
+    adj = rng.integers(0, N, size=(N, K)).astype(np.int32)
+    x = rng.normal(size=(N, f)).astype(dtype)
+    flat = np.ascontiguousarray(
+        np.swapaxes(blocks, 1, 2).reshape(N, f, K * f))
+    return blocks, adj, x, flat
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("N,K,f", [(50, 4, 3), (200, 16, 9)])
+def test_plain_version_matches_pallas_and_dispatch(N, K, f, dtype):
+    blocks, adj, x, flat = _random_ell(N, K, f, dtype, N + K + f)
+    got = ell_spmv(torch.as_tensor(flat), torch.as_tensor(adj),
+                   torch.as_tensor(x)).numpy()
+    xg = jnp.asarray(x)[jnp.asarray(adj)]
+    pallas = np.asarray(ell_block_contract_pallas(
+        jnp.asarray(blocks), xg, tile=64, interpret=True))
+    xla = np.asarray(ell_contract_dispatch(jnp.asarray(blocks), xg))
+    assert got.dtype == dtype
+    tol = TOL[dtype]
+    np.testing.assert_allclose(got, pallas, rtol=tol, atol=tol)
+    np.testing.assert_allclose(got, xla, rtol=tol, atol=tol)
+
+
+def _small_space():
+    mesh = pore_boundary_markers(
+        cylinder_mesh(100e-9, 10e-9, n_rings=2, n_layers=8), 100e-9, 10e-9)
+    return JFemSpace.build(mesh, 3, quad_degree=2)
+
+
+def test_blockell_matvec_matches_reference():
+    space = _small_space()
+    rng = np.random.default_rng(11)
+    adj = np.asarray(space.adj)
+    dslot = np.asarray(space.diag_slot)
+    N, K = adj.shape
+    blocks = rng.normal(size=(N, K, 3, 3))
+    jell = JBlockELL.from_blocks(jnp.asarray(adj), jnp.asarray(blocks),
+                                 jnp.asarray(dslot))
+    tell = blockell_from_numpy(adj, np.asarray(jell.flat), dslot)
+    x = rng.normal(size=(N, 3))
+    got = tell.matvec(torch.as_tensor(x)).numpy()
+    ref = np.asarray(jell.matvec(jnp.asarray(x)))
+    np.testing.assert_allclose(got, ref, rtol=1e-11, atol=1e-11)
+
+
+def test_f32_gmres_matches_reference_with_pallas_matvec():
+    """f32 GMRES over the port's ell_matvec converges like the reference's
+    f32 GMRES over ell_matvec_pallas (the LinearConfig.matvec='pallas'
+    path)."""
+    space = _small_space()
+    rng = np.random.default_rng(13)
+    adj = np.asarray(space.adj)
+    dslot = np.asarray(space.diag_slot)
+    N, K = adj.shape
+    blocks = (rng.normal(size=(N, K, 3, 3)) * 0.05).astype(np.float32)
+    blocks[np.arange(N), dslot] += 2.0 * np.eye(3, dtype=np.float32)
+    jell = JBlockELL.from_blocks(jnp.asarray(adj), jnp.asarray(blocks),
+                                 jnp.asarray(dslot))
+    b = rng.normal(size=(N, 3)).astype(np.float32)
+    jres = jgmres(lambda v: ell_matvec_pallas(jell, v, interpret=True),
+                  jnp.asarray(b), tol=1e-6, maxiter=200)
+    tell = blockell_from_numpy(adj, np.asarray(jell.flat), dslot)
+    tres = tgmres(lambda v: ell_matvec(tell, v), torch.as_tensor(b),
+                  tol=1e-6, maxiter=200)
+    assert bool(jres.converged) and tres.converged
+    assert tres.iters == int(jres.iters)
+    np.testing.assert_allclose(tres.x.numpy(), np.asarray(jres.x),
+                               rtol=5e-4, atol=5e-6)
+
+
+def test_cpu_tensors_never_launch():
+    before = dict(LAUNCHES)
+    _, adj, x, flat = _random_ell(30, 5, 3, np.float32, 1)
+    ell_spmv(torch.as_tensor(flat), torch.as_tensor(adj), torch.as_tensor(x))
+    assert LAUNCHES == before
+
+
+def test_wrapper_rejects_bad_operands():
+    _, adj, x, flat = _random_ell(30, 5, 3, np.float32, 2)
+    f, a, xx = (torch.as_tensor(v) for v in (flat, adj, x))
+    with pytest.raises(TypeError):
+        ell_spmv(f, a.long(), xx)
+    with pytest.raises(TypeError):
+        ell_spmv(f, a, xx.double())
+    with pytest.raises(ValueError):
+        ell_spmv(f, a[:-1], xx)
+    x_strided = torch.as_tensor(np.ascontiguousarray(x.T)).t()
+    assert not x_strided.is_contiguous()
+    with pytest.raises(ValueError):
+        ell_spmv(f, a, x_strided)
