@@ -7,15 +7,24 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 1. card: ``nvidia-smi`` name and power limit, torch's device name;
 2. build: the CUDA kernels compiled from ``gmpnp_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes (the L=50 nm, R=5 nm pore: N=2,501, K=15, f=9)
-   and at an edge shape: median times over 30 CUDA-event-timed calls
-   (host launch cost included), and device time per call from a replayed
-   CUDA graph of 100 calls;
+   the main path's shapes (the L=50 nm, R=5 nm pore: N=2,501, K=15, f=9,
+   the f=9 kernel) and at an edge shape (N=1,000, K=7, f=3, the generic-f
+   kernel), in turns (plain, kernel, kernel, plain): median times over 30
+   CUDA-event-timed calls (host launch cost included); device time per
+   call from a replayed CUDA graph, hot (one matrix, re-read from L2) and
+   cold (each launch reads another copy of the matrix, at least 256 MB of
+   copies in rotation, so every read comes from device memory); the bound
+   computed from the shapes and the share of it the cold time reaches; one
+   library call (``torch.sparse_bsr_tensor @ x``) timed the same way as a
+   yardstick; the device time of a one-tile launch as the floor; and
+   ragged, single-neighbour and misaligned shapes for correctness and
+   bitwise repeatability only;
 4. main path: ``python -m gmpnp_tpu_torch.cli.pore_3d`` at L=50 nm,
    R=5 nm — 5 steps in carried mode (f32 chord GMRES over the f32 kernel)
    and 2 steps in exact mode (f64 GMRES over the f64 kernel) — with every
    launch count set to 0 before and read after; per-step wall time, Newton
-   and linear iterations and host syncs; outputs present and finite;
+   and linear iterations, host syncs and kernel launches; outputs present
+   and finite;
 5. checks: a 3-step carried run on the (2, 10) mesh on the card and on the
    CPU (same Newton iterations, states within 1e-6), and a 3-step exact
    run on the card against the golden ``tests/goldens/pore_3d_gmpnp_3steps
@@ -31,6 +40,14 @@ runs phases 1-2 and then, in place of 3-5, the profile of the L=50 nm,
 R=5 nm pore: the time of each layer's call at the cold start, and a
 ``torch.profiler`` window over carried and exact steps with the device's
 busy share and its largest kernels.
+
+    python3 chip_smoke.py --kernel-times [--package-root DIR]
+
+runs phases 1-2 and the timings of phase 3 at the main path's shape only,
+with ``gmpnp_tpu_torch`` taken from DIR (default: beside this script).  To
+compare two commits on one card, unpack the other one with ``git archive``
+into an ignored directory and run on the card, one after the other: other,
+this, this, other.
 """
 
 import argparse
@@ -41,6 +58,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -49,6 +67,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "out", "chip_smoke")
 SLICE = ["--L", "50e-9", "--R", "5e-9"]
 KERNEL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# NVIDIA H100 SXM data sheet: device memory rate; f32 and f64 rates outside
+# the tensor cores (the kernel uses none)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+COLD_ROTATION_BYTES = 256 << 20
 
 
 def card_line() -> str:
@@ -76,16 +99,21 @@ def time_ms(fn, reps=30, warmup=5) -> float:
     return float(np.median(times))
 
 
-def graph_us(fn, n=100, reps=10) -> float:
-    """Device time per call in microseconds: ``n`` calls captured in one
-    CUDA graph, replayed ``reps`` times (median), so host launch overhead
-    drops out."""
-    fn()
+def graph_us(fns, n=100, reps=10) -> float:
+    """Device time per call in microseconds: the calls of ``fns``, taken in
+    rotation at least ``n`` times and each at least once, captured in one
+    CUDA graph and replayed ``reps`` times (median), so host launch
+    overhead drops out.  One callable gives the hot time (its operands stay
+    in L2); callables over enough distinct copies of an operand give the
+    cold one."""
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
+    n = max(n, len(fns))
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
-        for _ in range(n):
-            fn()
+        for i in range(n):
+            fns[i % len(fns)]()
     g.replay()
     torch.cuda.synchronize()
     times = []
@@ -100,56 +128,218 @@ def graph_us(fn, n=100, reps=10) -> float:
     return float(np.median(times))
 
 
+def spmv_bound(N, K, f, dtype):
+    """The least time the card could take for one product: every input read
+    once and the output written once over the memory rate, or the
+    operations over the peak rate of their type, whichever is larger."""
+    size = torch.empty((), dtype=dtype).element_size()
+    nbytes = N * f * K * f * size + N * K * 4 + 2 * N * f * size
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * N * f * K * f / PEAK_FLOPS[dtype]
+    return {"bytes": nbytes, "bound_us": max(t_bytes, t_ops) * 1e6,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def bsr_structure(adj):
+    """Block-CSR structure of a block-ELL adjacency: slots of one row that
+    name the same column (the padded ones alias the row's own vertex) are
+    merged.  Returns crow, col and, per ELL slot, its block's index."""
+    a = adj.cpu().numpy().astype(np.int64)
+    N = a.shape[0]
+    key = (np.arange(N)[:, None] * N + a).reshape(-1)
+    uniq, inv = np.unique(key, return_inverse=True)
+    crow = np.zeros(N + 1, dtype=np.int64)
+    np.cumsum(np.bincount(uniq // N, minlength=N), out=crow[1:])
+    dev = adj.device
+    return (torch.as_tensor(crow, device=dev),
+            torch.as_tensor(uniq % N, device=dev),
+            torch.as_tensor(inv.reshape(-1), device=dev))
+
+
+def library_times(flats, adj, x, ref):
+    """The yardstick: the same matrix as one ``torch.sparse_bsr_tensor``,
+    times x as a column, checked against the plain version.  Called by
+    nothing in the package.  Returns the times, or the reason there is no
+    single PyTorch call."""
+    N, f, Kf = flats[0].shape
+    K = Kf // f
+    try:
+        crow, col, slot = bsr_structure(adj)
+        mats = []
+        for flat in flats:
+            blocks = flat.reshape(N, f, K, f).permute(0, 2, 1, 3)
+            vals = torch.zeros((col.shape[0], f, f), dtype=flat.dtype,
+                               device=flat.device)
+            vals.index_add_(0, slot, blocks.reshape(N * K, f, f))
+            with warnings.catch_warnings():  # "BSR support is in beta"
+                warnings.simplefilter("ignore")
+                mats.append(torch.sparse_bsr_tensor(
+                    crow, col, vals, size=(N * f, N * f),
+                    check_invariants=False))
+        xc = x.reshape(-1, 1)
+        got = (mats[0] @ xc).reshape(N, f)
+        torch.cuda.synchronize()
+        rel = float((got - ref).norm() / ref.norm())
+        if not rel <= KERNEL_TOL[x.dtype]:
+            raise AssertionError(
+                f"BSR result misses the plain version: rel_l2 {rel}")
+        return {"library_ms": time_ms(lambda: mats[0] @ xc),
+                "library_us": graph_us([lambda: mats[0] @ xc]),
+                "library_us_cold": graph_us(
+                    [(lambda m=m: m @ xc) for m in mats]),
+                "library_rel_l2": rel}
+    except Exception as e:  # the yardstick may be refused; the run goes on
+        return {"library_ms": None, "library_us": None,
+                "library_us_cold": None,
+                "library_note": f"no single PyTorch call: "
+                                f"{type(e).__name__}: {e}"[:300]}
+
+
+def kernel_times(label, flat, adj, x, library=True):
+    """Times of ell_spmv and its plain version at one shape and type, in
+    turns (plain, kernel, kernel, plain), with the bound; prints one line
+    and returns the record."""
+    from gmpnp_tpu_torch.ops.ell_spmv import ell_spmv, ell_spmv_reference
+
+    N, f, Kf = flat.shape
+    K = Kf // f
+    bound = spmv_bound(N, K, f, flat.dtype)
+    copies = -(-COLD_ROTATION_BYTES // (flat.numel() * flat.element_size()))
+    flats = [flat] + [flat.clone() for _ in range(copies - 1)]
+    turns = {"kernel": [], "plain": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        fn = ell_spmv if name == "kernel" else ell_spmv_reference
+        turns[name].append((
+            time_ms(lambda: fn(flat, adj, x)),
+            graph_us([lambda: fn(flat, adj, x)]),
+            graph_us([(lambda m=m: fn(m, adj, x)) for m in flats])))
+    (ms, hot, cold), (plain_ms, plain_hot, plain_cold) = (
+        tuple(float(np.mean(v)) for v in zip(*turns[name]))
+        for name in ("kernel", "plain"))
+    rec = {"ms": ms, "plain_ms": plain_ms, "device_us": hot,
+           "device_us_cold": cold, "plain_device_us": plain_hot,
+           "plain_device_us_cold": plain_cold,
+           "bound_us": bound["bound_us"], "bound_ms": bound["bound_us"] / 1e3,
+           "bound_by": bound["bound_by"],
+           "share_of_bound_cold": bound["bound_us"] / cold}
+    if library:
+        rec.update(library_times(flats, adj, x,
+                                 ell_spmv_reference(flat, adj, x)))
+    print(f"kernel ell_spmv {label} N={N} K={K} f={f} {flat.dtype}: "
+          f"bytes={bound['bytes']} cold_copies={copies} turns="
+          f"{json.dumps(turns)} " + json.dumps(rec), flush=True)
+    if rec["share_of_bound_cold"] > 1.0:
+        raise AssertionError(
+            f"ell_spmv {label} {flat.dtype}: cold time {cold} us is under "
+            f"the bound {bound['bound_us']} us: the rotation did not keep "
+            f"the matrix out of L2")
+    return rec
+
+
+def slice_adj(dev):
+    from gmpnp_tpu_torch.fem.assembly import FemSpace
+    from gmpnp_tpu_torch.mesh import cylinder_mesh, pore_boundary_markers
+
+    mesh = pore_boundary_markers(cylinder_mesh(50e-9, 5e-9), 50e-9, 5e-9)
+    return FemSpace.build(mesh, 9, quad_degree=2, device=dev).dev["adj"]
+
+
+def random_operands(rng, adj, f, dtype, offset=0):
+    """flat and x for an adjacency, from the seeded generator; ``offset``
+    shifts flat's pointer by that many elements (a contiguous view that is
+    not 16-byte aligned)."""
+    N, K = adj.shape
+    buf = torch.as_tensor(rng.normal(size=(N * f * K * f + offset,)),
+                          dtype=dtype, device=adj.device)
+    flat = buf[offset:].view(N, f, K * f)
+    x = torch.as_tensor(rng.normal(size=(N, f)), dtype=dtype,
+                        device=adj.device)
+    return flat, x
+
+
 def check_kernels(dev):
     """Phase 3: ell_spmv vs its plain version; returns per-dtype records at
     the main path's shape."""
-    from gmpnp_tpu_torch.fem.assembly import FemSpace
-    from gmpnp_tpu_torch.mesh import cylinder_mesh, pore_boundary_markers
     from gmpnp_tpu_torch.ops.ell_spmv import ell_spmv, ell_spmv_reference
 
-    mesh = pore_boundary_markers(cylinder_mesh(50e-9, 5e-9), 50e-9, 5e-9)
-    adj_slice = FemSpace.build(mesh, 9, quad_degree=2, device=dev).dev["adj"]
+    def compare(label, flat, adj, x):
+        y = ell_spmv(flat, adj, x)
+        again = ell_spmv(flat, adj, x)
+        ref = ell_spmv_reference(flat, adj, x)
+        torch.cuda.synchronize()
+        rel = float((y - ref).norm() / ref.norm().clamp_min(1e-300))
+        err = float((y - ref).abs().max())
+        if not rel <= KERNEL_TOL[flat.dtype]:
+            raise AssertionError(
+                f"ell_spmv {label} {tuple(flat.shape)} {flat.dtype}: "
+                f"rel_l2 {rel} > {KERNEL_TOL[flat.dtype]}")
+        if not torch.equal(y, again):
+            raise AssertionError(
+                f"ell_spmv {label} {tuple(flat.shape)} {flat.dtype}: two "
+                f"launches on the same operands differ")
+        return rel, err
+
     rng = np.random.default_rng(2024)
-    edge_adj = torch.as_tensor(
-        rng.integers(0, 1000, size=(1000, 7)).astype(np.int32), device=dev)
+
+    def random_adj(N, K):
+        return torch.as_tensor(
+            rng.integers(0, N, size=(N, K)).astype(np.int32), device=dev)
+
+    # what a launch costs whatever it moves: one tile, 16 bytes of matrix
+    floor = {}
+    for dtype in (torch.float32, torch.float64):
+        adj = random_adj(4, 1)
+        flat, x = random_operands(rng, adj, 1, dtype)
+        floor[dtype] = graph_us([lambda: ell_spmv(flat, adj, x)])
+        print(f"kernel ell_spmv launch floor N=4 K=1 f=1 {dtype}: "
+              f"device_us={floor[dtype]!r}", flush=True)
+
     records = {}
-    for label, adj, f in (("slice", adj_slice, 9), ("edge", edge_adj, 3)):
-        N, K = adj.shape
+    for label, adj, f in (("slice", slice_adj(dev), 9),
+                          ("edge", random_adj(1000, 7), 3)):
         for dtype in (torch.float32, torch.float64):
-            flat = torch.as_tensor(rng.normal(size=(N, f, K * f)),
-                                   dtype=dtype, device=dev)
-            x = torch.as_tensor(rng.normal(size=(N, f)), dtype=dtype,
-                                device=dev)
-            y = ell_spmv(flat, adj, x)
-            ref = ell_spmv_reference(flat, adj, x)
-            torch.cuda.synchronize()
-            rel = float((y - ref).norm() / ref.norm())
-            err = float((y - ref).abs().max())
-            ms = time_ms(lambda: ell_spmv(flat, adj, x))
-            plain_ms = time_ms(lambda: ell_spmv_reference(flat, adj, x))
-            dev_us = graph_us(lambda: ell_spmv(flat, adj, x))
-            plain_dev_us = graph_us(lambda: ell_spmv_reference(flat, adj, x))
-            print(f"kernel ell_spmv {label} N={N} K={K} f={f} {dtype}: "
-                  f"rel_l2={rel!r} max_abs_err={err!r} "
-                  f"kernel_ms={ms!r} plain_ms={plain_ms!r} "
-                  f"graph_kernel_us={dev_us!r} graph_plain_us="
-                  f"{plain_dev_us!r}", flush=True)
-            if not rel <= KERNEL_TOL[dtype]:
-                raise AssertionError(
-                    f"ell_spmv {label} {dtype}: rel_l2 {rel} > "
-                    f"{KERNEL_TOL[dtype]}")
+            flat, x = random_operands(rng, adj, f, dtype)
+            rel, err = compare(label, flat, adj, x)
+            rec = kernel_times(label, flat, adj, x)
+            print(f"  rel_l2={rel!r} max_abs_err={err!r}", flush=True)
             if label == "slice":
-                records[dtype] = {"max_abs_err": err, "ms": ms,
-                                  "plain_ms": plain_ms}
+                records[dtype] = {"max_abs_err": err, **rec,
+                                  "floor_us": floor[dtype]}
+
+    # correctness and repeatability only: ragged last tiles, one neighbour,
+    # widths on both kernels, and a matrix that is not 16-byte aligned
+    shapes = [(N, 1, f) for N in (1, 3, 4, 5) for f in (1, 8, 9)]
+    shapes += [(53, 15, 8), (130, 31, 9), (2501, 15, 9), (1000, 7, 3)]
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    for N, K, f in shapes:
+        adj = random_adj(N, K)
+        for dtype in worst:
+            for offset in (0, 1):
+                flat, x = random_operands(rng, adj, f, dtype, offset)
+                rel, _ = compare(f"offset={offset}", flat, adj, x)
+                worst[dtype] = max(worst[dtype], rel)
+    print(f"kernel ell_spmv {len(shapes)} more shapes x 2 types x "
+          f"(aligned, misaligned view): worst rel_l2 "
+          f"{ {str(k): v for k, v in worst.items()} }, every pair of "
+          f"launches bitwise equal", flush=True)
     return records
+
+
+def kernel_times_only(dev):
+    """--kernel-times: the main path's shape, both types, no library call."""
+    rng = np.random.default_rng(2024)
+    adj = slice_adj(dev)
+    for dtype in (torch.float32, torch.float64):
+        flat, x = random_operands(rng, adj, 9, dtype)
+        kernel_times("slice", flat, adj, x, library=False)
 
 
 def run_cli(argv, steps_log):
     """One CLI run with per-step timing: wraps the model's run_transient so
-    each step ends in a synchronize and records wall ms, iterations and
-    host syncs."""
+    each step ends in a synchronize and records wall ms, iterations, host
+    syncs and kernel launches."""
     import gmpnp_tpu_torch.models.pore_3d as model
-    from gmpnp_tpu_torch import sync
+    from gmpnp_tpu_torch import ops, sync
     from gmpnp_tpu_torch.cli import pore_3d as cli
 
     orig = model.run_transient
@@ -157,6 +347,7 @@ def run_cli(argv, steps_log):
     def timed_run_transient(step, *args, **kw):
         def timed(*a):
             torch.cuda.synchronize()
+            l0 = dict(ops.LAUNCHES)
             s0, t0 = sync.SYNCS, time.perf_counter()
             out = step(*a)
             torch.cuda.synchronize()
@@ -166,7 +357,9 @@ def run_cli(argv, steps_log):
                 "newton": int(st.newton_iters),
                 "linear": int(st.linear_iters),
                 "converged": bool(st.converged),
-                "host_syncs": sync.SYNCS - s0})
+                "host_syncs": sync.SYNCS - s0,
+                "launches": {str(k).replace("torch.", ""): v - l0[k]
+                             for k, v in ops.LAUNCHES.items()}})
             return out
         return orig(timed, *args, **kw)
 
@@ -385,10 +578,18 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", action="store_true",
                    help="profile the main path in place of phases 3-5")
+    p.add_argument("--kernel-times", action="store_true",
+                   help="time the kernel at the main path's shape in place "
+                        "of phases 3-5")
+    p.add_argument("--package-root", default=None,
+                   help="directory that holds the gmpnp_tpu_torch to load "
+                        "(default: beside this script)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.package_root:
+        sys.path.insert(0, os.path.abspath(args.package_root))
     from gmpnp_tpu_torch.ops import _build
 
     dev = torch.device("cuda", 0)
@@ -400,6 +601,11 @@ def main(argv=None) -> int:
     lib = _build.build()
     print(f"build: {lib} in {time.perf_counter() - t0!r} s", flush=True)
     print(_build.BUILD_LOG.strip(), flush=True)
+
+    if args.kernel_times:
+        kernel_times_only(dev)
+        print(card_line(), flush=True)
+        return 0
 
     if args.profile:
         profile_calls(dev)

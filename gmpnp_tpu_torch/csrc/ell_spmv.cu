@@ -11,68 +11,234 @@
 //     flat (N, f, K*f), adj (N, K) int32, x (N, f), y (N, f); T = float|double
 //
 // Bound: bytes.  Every matrix entry is read once and used once (2 flops per
-// 4 or 8 bytes).  At the 3D pore main path (N=2,501, K=15, f=9) the f32
-// matrix is 2,501*9*135*4 B ~ 12 MB per product, so at this N the kernel is
-// bound by launch latency and by the latency of its dependent loads rather
-// than by bandwidth.  The fused gather is the design's answer:
-// one launch, one pass over the matrix, x (90 KB) served from L1/L2.
+// 4 or 8 bytes), so the least time is (flat + adj + x + y) bytes over the
+// H100's 3.35 TB/s: at the 3D pore main path (N=2,501, K=15, f=9) 12,484,992
+// B = 3.73 us in f32 and 24,819,924 B = 7.41 us in f64.  The matrix (12 / 24
+// MB) is a fraction of what the card must have in flight to reach that rate,
+// and a launch costs a few us whatever it does, so the design's job is to
+// put every byte of the matrix in flight at once, on all 132 SMs, with as
+// little work per byte as possible.  Measured times: PERF.md section 6.
 //
-// Design (first, simple version): one thread per output row (n, r); the
-// K*f sum stays in a register in the working type.  Padded ELL slots alias
-// the row's own vertex with zero blocks and need no special case.  The
-// kernel launches on the caller's stream, does not synchronise and
-// allocates nothing; the C entry points return cudaGetLastError().
+// Design.  A vertex's block row is one contiguous run of f*K*f values.  One
+// block of 128 threads owns a tile of `tile` consecutive vertices, chosen by
+// the wrapper (ops/ell_spmv.py::tile_vertices) so that tile*f*K*f*sizeof(T)
+// is a multiple of 16 bytes and every warp has a vertex (at f=9, K=15 a row
+// is 4,860 B in f32 and 9,720 B in f64, multiples of 4 and 8 only: tiles of
+// 4 vertices in both types).  Then every tile starts on a 16-byte boundary
+// and
+//   1. thread 0 issues ONE 1D bulk copy (cp.async.bulk, completion counted
+//      on an mbarrier) of the whole tile into shared memory: coalesced by
+//      construction, no registers or address arithmetic spent on it, and
+//      with the main path's 626 tiles of 19 KB (f32) or 39 KB (f64) all
+//      resident in one wave the whole matrix is requested at once;
+//   2. while it flies, the block gathers x[adj[n, :]] once per vertex into
+//      shared memory (K*f values; x is 90-180 KB and sits in L1/L2);
+//   3. f == 9 (the pore's 8 species + potential): one warp per vertex keeps
+//      the 9 row sums in registers, lanes stride the K*f columns (bank-
+//      conflict free), the 9 loads of an iteration are independent, and a
+//      butterfly of shuffles finishes each row.  Any other f: one warp per
+//      output row, same lane stride, same butterfly.
+// The ragged last tile (N % tile vertices, a size that need not be a
+// multiple of 16 bytes) bulk-copies its 16-byte chunks and moves the
+// remainder with element-sized cp.async; a matrix whose base pointer is
+// not 16-byte aligned (a view with a storage offset) or a tile size the
+// wrapper could not align goes through element-sized cp.async entirely.
+// Tried on the card against this: per-thread 16-byte cp.async over the
+// same tiles (a little slower in both types), 256 threads or larger tiles
+// (fewer blocks in flight: slower), and f64 tiles of 2 vertices (slower
+// than 4: two of the four warps have no vertex).
+//
+// The order of summation is fixed (register loop, then xor-butterfly): no
+// atomics, two launches give the same bits.  Products and sums stay in the
+// working type (FMA).  No tensor cores: a 9-wide block times one vector has
+// no reuse to feed wgmma, TF32 would break the f32 parity bands, and the
+// kernel is bound by bytes, not operations.
+//
+// Padded ELL slots alias the row's own vertex with zero blocks and need no
+// special case.  The kernel launches on the caller's stream, does not
+// synchronise and allocates nothing; the C entry points return
+// cudaGetLastError() (or the error of cudaFuncSetAttribute where a tile
+// needs more than 48 KB of shared memory).
 
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace {
 
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// element-sized asynchronous copy, for tails and misaligned matrices
 template <typename T>
-__global__ void ell_spmv_kernel(const T* __restrict__ flat,
-                                const int* __restrict__ adj,
-                                const T* __restrict__ x,
-                                T* __restrict__ y,
-                                int N, int K, int f) {
-  const long long row = static_cast<long long>(blockIdx.x) * blockDim.x
-                        + threadIdx.x;
-  const long long rows = static_cast<long long>(N) * f;
-  if (row >= rows) return;
-  const int n = static_cast<int>(row / f);
-  const long long Kf = static_cast<long long>(K) * f;
-  const T* a = flat + row * Kf;
-  const int* nb = adj + static_cast<long long>(n) * K;
-  T acc = T(0);
-  for (int k = 0; k < K; ++k) {
-    const T* xs = x + static_cast<long long>(nb[k]) * f;
-    const T* ak = a + k * f;
-    for (int c = 0; c < f; ++c) {
-      acc += ak[c] * xs[c];
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
+  if constexpr (sizeof(T) == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// F > 0: f known at compile time (one warp per vertex, F sums in
+// registers); F == 0: f at run time (one warp per output row).
+// aligned != 0: every tile starts on a 16-byte boundary.
+template <typename T, int F>
+__global__ void __launch_bounds__(kThreads)
+ell_spmv_kernel(const T* __restrict__ flat, const int* __restrict__ adj,
+                const T* __restrict__ x, T* __restrict__ y,
+                int N, int K, int f_rt, int tile, int aligned) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(8) unsigned long long bar;
+  constexpr int kPer16 = 16 / static_cast<int>(sizeof(T));
+  const int f = F ? F : f_rt;
+  const int Kf = K * f;
+  const int row_len = f * Kf;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n0 = blockIdx.x * tile;
+  const int nv = min(tile, N - n0);
+
+  T* a_s = reinterpret_cast<T*>(smem);
+  T* xg_s = a_s + (tile * row_len + kPer16 - 1) / kPer16 * kPer16;
+
+  const T* src = flat + static_cast<size_t>(n0) * row_len;
+  const int total = nv * row_len;
+  const int bulk = aligned ? total / kPer16 * kPer16 : 0;  // values
+  const uint32_t bar_a = smem_u32(&bar);
+
+  if (bulk > 0) {
+    if (tid == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                   :: "r"(bar_a), "r"(1) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      const uint32_t bytes = static_cast<uint32_t>(bulk) * sizeof(T);
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   :: "r"(bar_a), "r"(bytes) : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n"
+          :: "r"(smem_u32(a_s)), "l"(src), "r"(bytes), "r"(bar_a)
+          : "memory");
     }
   }
-  y[row] = acc;
+  for (int i = bulk + tid; i < total; i += kThreads)
+    cp_async_elem(a_s + i, src + i);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  // gather x[adj[n, :]] once per vertex while the matrix is in flight
+  for (int i = tid; i < nv * Kf; i += kThreads) {
+    const int v = i / Kf;
+    const int j = i - v * Kf;
+    const int k = j / f;
+    const int c = j - k * f;
+    const int nb = adj[static_cast<size_t>(n0 + v) * K + k];
+    xg_s[i] = x[static_cast<size_t>(nb) * f + c];
+  }
+
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();  // gathered x, copied tails and the barrier's init
+  if (bulk > 0) {
+    uint32_t done = 0;
+    while (!done) {
+      asm volatile(
+          "{\n .reg .pred p;\n"
+          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done) : "r"(bar_a), "r"(0) : "memory");
+    }
+  }
+
+  if constexpr (F > 0) {
+    for (int v = warp; v < nv; v += kWarps) {
+      const T* a = a_s + v * row_len;
+      const T* xs = xg_s + v * Kf;
+      T acc[F];
+#pragma unroll
+      for (int r = 0; r < F; ++r) acc[r] = T(0);
+      for (int j = lane; j < Kf; j += 32) {
+        const T xv = xs[j];
+#pragma unroll
+        for (int r = 0; r < F; ++r) acc[r] = fma(a[r * Kf + j], xv, acc[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < F; ++r) acc[r] = warp_sum(acc[r]);
+      T out = acc[0];
+#pragma unroll
+      for (int r = 1; r < F; ++r)
+        if (lane == r) out = acc[r];
+      if (lane < F) y[static_cast<size_t>(n0 + v) * F + lane] = out;
+    }
+  } else {
+    const int rows = nv * f;
+    for (int row = warp; row < rows; row += kWarps) {
+      const T* a = a_s + row * Kf;
+      const T* xs = xg_s + (row / f) * Kf;
+      T acc = T(0);
+      for (int j = lane; j < Kf; j += 32) acc = fma(a[j], xs[j], acc);
+      acc = warp_sum(acc);
+      if (lane == 0) y[static_cast<size_t>(n0) * f + row] = acc;
+    }
+  }
+}
+
+template <typename T, int F>
+int launch_f(const void* flat, const void* adj, const void* x, void* y,
+             int N, int K, int f, int tile, void* stream) {
+  constexpr long long kPer16 = 16 / sizeof(T);
+  const long long row_len = static_cast<long long>(f) * K * f;
+  const long long a_vals = (tile * row_len + kPer16 - 1) / kPer16 * kPer16;
+  const long long smem = (a_vals + static_cast<long long>(tile) * K * f)
+                         * static_cast<long long>(sizeof(T));
+  const int aligned = reinterpret_cast<uintptr_t>(flat) % 16 == 0
+                      && (tile * row_len * sizeof(T)) % 16 == 0;
+  auto kernel = ell_spmv_kernel<T, F>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const unsigned int blocks = static_cast<unsigned int>((N + tile - 1) / tile);
+  kernel<<<blocks, kThreads, static_cast<size_t>(smem),
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(flat), static_cast<const int*>(adj),
+      static_cast<const T*>(x), static_cast<T*>(y), N, K, f, tile, aligned);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* flat, const void* adj, const void* x, void* y,
-           int N, int K, int f, void* stream) {
-  const long long rows = static_cast<long long>(N) * f;
-  const int threads = 256;
-  const long long blocks = (rows + threads - 1) / threads;
-  ell_spmv_kernel<T><<<static_cast<unsigned int>(blocks), threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(flat), static_cast<const int*>(adj),
-      static_cast<const T*>(x), static_cast<T*>(y), N, K, f);
-  return static_cast<int>(cudaGetLastError());
+           int N, int K, int f, int tile, void* stream) {
+  if (tile < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (f == 9) return launch_f<T, 9>(flat, adj, x, y, N, K, f, tile, stream);
+  return launch_f<T, 0>(flat, adj, x, y, N, K, f, tile, stream);
 }
 
 }  // namespace
 
 extern "C" int ell_spmv_f32(const void* flat, const void* adj, const void* x,
-                            void* y, int N, int K, int f, void* stream) {
-  return launch<float>(flat, adj, x, y, N, K, f, stream);
+                            void* y, int N, int K, int f, int tile,
+                            void* stream) {
+  return launch<float>(flat, adj, x, y, N, K, f, tile, stream);
 }
 
 extern "C" int ell_spmv_f64(const void* flat, const void* adj, const void* x,
-                            void* y, int N, int K, int f, void* stream) {
-  return launch<double>(flat, adj, x, y, N, K, f, stream);
+                            void* y, int N, int K, int f, int tile,
+                            void* stream) {
+  return launch<double>(flat, adj, x, y, N, K, f, tile, stream);
 }

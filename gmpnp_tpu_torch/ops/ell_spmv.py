@@ -7,11 +7,19 @@ built by XLA outside it.  The Hopper kernel (``csrc/ell_spmv.cu``) reads
 BlockELL's native ``(N, f, K*f)`` layout and gathers ``x`` itself, so
 neither temporary exists.
 
-Bound: bytes.  Each matrix entry is read once for two flops; at the 3D pore
-main path (N=2,501, K=15, f=9) the f32 matrix is 2,501*9*135*4 B ~ 12 MB
-per product, small enough that launch and load latency, not bandwidth, set
-the time.  Fusing the gather into the one pass over the matrix is the
-design's answer.
+Bound: bytes.  Each matrix entry is read once for two flops, so the least
+time is (flat + adj + x + y) bytes over the H100's 3.35 TB/s: at the 3D pore
+main path (N=2,501, K=15, f=9) 12,484,992 B = 3.73 us in f32 and 24,819,924
+B = 7.41 us in f64.  At 12-24 MB the product is over before the card's
+memory pipeline is full, so the kernel's design is about bytes in flight: one
+block per tile of vertices (``tile_vertices``: a multiple of the vertices
+whose block rows together fill whole 16-byte units, 4 at f=9, K=15 in both
+types), the tile brought into shared memory by one 1D bulk copy, ``x[adj]``
+gathered once per vertex meanwhile, row sums in registers and warp shuffles
+in a fixed order (two launches give the same bits).  Any element-aligned
+contiguous operand is taken: a view whose pointer is not 16-byte aligned
+goes through the kernel's element-sized copies.  Measured times and the
+share of the bound reached: ``PERF.md`` section 6.
 
 ``ell_spmv`` launches the kernel for CUDA tensors (or raises) and runs the
 plain version ``ell_spmv_reference`` for CPU tensors only.  ``LAUNCHES``
@@ -20,10 +28,47 @@ counts kernel launches per dtype.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 #: kernel launches per dtype, counted where the kernel is launched
 LAUNCHES = {torch.float32: 0, torch.float64: 0}
+
+#: warps per block in csrc/ell_spmv.cu (kWarps): a tile holds at least as
+#: many vertices, so that no warp is without one
+_WARPS = 4
+#: shared memory a tile (matrix rows + gathered x) may take, of the 227 KB
+#: a block can have on the H100
+_SMEM_BUDGET = 200 * 1024
+
+
+def align_vertices(f: int, K: int, itemsize: int) -> int:
+    """The fewest consecutive vertices whose block rows (f*K*f values each)
+    fill a whole number of 16-byte units: tiles of a multiple of this start
+    on 16-byte boundaries when the matrix does."""
+    return 16 // math.gcd(f * K * f * itemsize, 16)
+
+
+def _tile_smem(tile: int, f: int, K: int, itemsize: int) -> int:
+    per16 = 16 // itemsize
+    rows = -(-tile * f * K * f // per16) * per16
+    return (rows + tile * K * f) * itemsize
+
+
+def tile_vertices(f: int, K: int, itemsize: int) -> int:
+    """Vertices per block of the kernel: the smallest multiple of
+    ``align_vertices`` that gives every warp a vertex.  Falls back to fewer
+    (last of all one, copied element by element) where shared memory is
+    short, and raises where even one block row does not fit."""
+    align = align_vertices(f, K, itemsize)
+    most = align * -(-_WARPS // align)
+    for tile in (*range(most, 0, -align), 1):
+        if _tile_smem(tile, f, K, itemsize) <= _SMEM_BUDGET:
+            return tile
+    raise ValueError(
+        f"ell_spmv: one block row of f={f}, K={K} "
+        f"({f * K * f * itemsize} bytes) exceeds the kernel's shared memory")
 
 
 def ell_spmv_reference(flat: torch.Tensor, adj: torch.Tensor,
@@ -66,8 +111,9 @@ def ell_spmv(flat: torch.Tensor, adj: torch.Tensor,
     """``y[n, r] = sum_k sum_c flat[n, r, k*f + c] * x[adj[n, k], c]``.
 
     flat (N, f, K*f) float32|float64, adj (N, K) int32, x (N, f) of flat's
-    dtype, all contiguous on one device -> y (N, f).  CUDA tensors launch
-    the kernel on the current stream; CPU tensors take the plain version."""
+    dtype, all contiguous on one device (a view with a storage offset is
+    fine) -> y (N, f).  CUDA tensors launch the kernel on the current
+    stream; CPU tensors take the plain version."""
     _check(flat, adj, x)
     if flat.device.type == "cpu":
         return ell_spmv_reference(flat, adj, x)
@@ -79,12 +125,14 @@ def ell_spmv(flat: torch.Tensor, adj: torch.Tensor,
     y = torch.empty((N, f), dtype=flat.dtype, device=flat.device)
     if N == 0 or f == 0:
         return y
+    K = Kf // f
+    tile = tile_vertices(f, K, flat.element_size())
     lib = load_library()
     fn = lib.ell_spmv_f32 if flat.dtype == torch.float32 else lib.ell_spmv_f64
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream(flat.device).cuda_stream
         err = fn(flat.data_ptr(), adj.data_ptr(), x.data_ptr(), y.data_ptr(),
-                 N, Kf // f, f, stream)
+                 N, K, f, tile, stream)
     if err != 0:
         raise RuntimeError(f"ell_spmv kernel launch failed: CUDA error {err}")
     LAUNCHES[flat.dtype] += 1

@@ -8,7 +8,8 @@ gmpnp_tpu, so they run on a machine that has only PyTorch:
 
 Tolerances: the kernel in f32 1e-5 and in f64 1e-12 relative L2 (another
 summation order); card vs CPU states 1e-6 relative L2 (the f32-chord band:
-the chord directions are f32 GMRES solves).
+the chord directions are f32 GMRES solves).  Two launches on the same
+operands are bitwise equal (the kernel's order of summation is fixed).
 """
 
 import dataclasses
@@ -46,6 +47,58 @@ def test_kernel_matches_plain_version(cuda_device, N, K, f, dtype, tol):
     assert LAUNCHES[args[0].dtype] == n0 + 1
     ref = ell_spmv_reference(*args)
     assert float((y - ref).norm() / ref.norm()) <= tol
+
+
+def _operands(N, K, f, dtype, device, offset=0, seed=5):
+    """Seeded operands on the card; ``offset`` shifts flat's pointer by that
+    many elements, so the view is contiguous but not 16-byte aligned."""
+    rng = np.random.default_rng(seed)
+    buf = torch.as_tensor(
+        rng.normal(size=(N * f * K * f + offset,)).astype(dtype),
+        device=device)
+    flat = buf[offset:].view(N, f, K * f)
+    adj = torch.as_tensor(rng.integers(0, N, size=(N, K)).astype(np.int32),
+                          device=device)
+    x = torch.as_tensor(rng.normal(size=(N, f)).astype(dtype), device=device)
+    return flat, adj, x
+
+
+# ragged last tiles (N not a multiple of the tile), one neighbour, widths
+# on the f=9 kernel and on the generic one, a tile over 48 KB of shared
+# memory (K=31), each from an aligned and from a misaligned pointer
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5),
+                                       (np.float64, 1e-12)])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("N,K,f", [
+    (1, 1, 1), (3, 1, 9), (4, 1, 8), (5, 1, 9), (5, 1, 1), (4, 1, 9),
+    (53, 15, 8), (130, 31, 9), (2501, 15, 9)])
+def test_kernel_ragged_and_misaligned(cuda_device, N, K, f, offset, dtype,
+                                      tol):
+    flat, adj, x = _operands(N, K, f, dtype, cuda_device, offset)
+    assert flat.is_contiguous()
+    if offset:
+        assert flat.data_ptr() % 16 != 0
+    y = ell_spmv(flat, adj, x)
+    again = ell_spmv(flat, adj, x)
+    torch.cuda.synchronize()
+    ref = ell_spmv_reference(flat, adj, x)
+    assert float((y - ref).norm() / ref.norm()) <= tol
+    assert torch.equal(y, again)
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5),
+                                       (np.float64, 1e-12)])
+def test_kernel_on_a_side_stream(cuda_device, dtype, tol):
+    flat, adj, x = _operands(2501, 15, 9, dtype, cuda_device)
+    y = ell_spmv(flat, adj, x)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(device=cuda_device)
+    with torch.cuda.stream(side):
+        y_side = ell_spmv(flat, adj, x)
+    side.synchronize()
+    ref = ell_spmv_reference(flat, adj, x)
+    assert torch.equal(y, y_side)
+    assert float((y_side - ref).norm() / ref.norm()) <= tol
 
 
 def test_carried_transient_card_matches_cpu(cuda_device):

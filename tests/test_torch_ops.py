@@ -24,7 +24,11 @@ from gmpnp_tpu.ops.ell_spmv import (  # noqa: E402
 from gmpnp_tpu.solve.linear import gmres as jgmres  # noqa: E402
 from gmpnp_tpu_torch.interop import blockell_from_numpy  # noqa: E402
 from gmpnp_tpu_torch.ops import LAUNCHES, ell_spmv  # noqa: E402
-from gmpnp_tpu_torch.ops.ell_spmv import ell_matvec  # noqa: E402
+from gmpnp_tpu_torch.ops.ell_spmv import (  # noqa: E402
+    align_vertices,
+    ell_matvec,
+    tile_vertices,
+)
 from gmpnp_tpu_torch.solve.linear import gmres as tgmres  # noqa: E402
 
 TOL = {np.float32: 2e-5, np.float64: 1e-11}
@@ -41,7 +45,8 @@ def _random_ell(N, K, f, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("N,K,f", [(50, 4, 3), (200, 16, 9)])
+@pytest.mark.parametrize("N,K,f", [(50, 4, 3), (200, 16, 9), (5, 1, 9),
+                                   (53, 15, 8)])
 def test_plain_version_matches_pallas_and_dispatch(N, K, f, dtype):
     blocks, adj, x, flat = _random_ell(N, K, f, dtype, N + K + f)
     got = ell_spmv(torch.as_tensor(flat), torch.as_tensor(adj),
@@ -123,3 +128,51 @@ def test_wrapper_rejects_bad_operands():
     assert not x_strided.is_contiguous()
     with pytest.raises(ValueError):
         ell_spmv(f, a, x_strided)
+
+
+# a block row of f*K*f values: 4,860 B (f32) and 9,720 B (f64) at the pore's
+# f=9, K=15 are multiples of 4 and 8 bytes only
+@pytest.mark.parametrize("f,K,itemsize,want", [
+    (9, 15, 4, 4), (9, 15, 8, 2), (8, 15, 4, 1), (8, 15, 8, 1),
+    (3, 7, 4, 4), (3, 7, 8, 2), (1, 1, 4, 4), (1, 1, 8, 2), (2, 1, 4, 1),
+    (9, 2, 4, 2)])
+def test_align_vertices(f, K, itemsize, want):
+    assert align_vertices(f, K, itemsize) == want
+    assert (want * f * K * f * itemsize) % 16 == 0
+    assert all((v * f * K * f * itemsize) % 16 for v in range(1, want))
+
+
+@pytest.mark.parametrize("f,K,itemsize,want", [
+    (9, 15, 4, 4),       # the pore: 626 tiles of 19,440 B
+    (9, 15, 8, 4),       # two aligned pairs: every warp has a vertex
+    (3, 7, 4, 4),
+    (1, 1, 4, 4),
+    (8, 15, 4, 4),
+    (20, 30, 8, 2),      # 96 KB rows: two fit, four do not
+    (9, 201, 4, 1),      # four rows exceed shared memory: one, unaligned
+])
+def test_tile_vertices(f, K, itemsize, want):
+    tile = tile_vertices(f, K, itemsize)
+    assert tile == want
+    if tile > 1:
+        assert tile % align_vertices(f, K, itemsize) == 0
+
+
+def test_tile_vertices_rejects_a_row_beyond_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        tile_vertices(32, 64, 4)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_wrapper_takes_a_view_with_a_storage_offset(dtype):
+    """A contiguous view whose pointer is not 16-byte aligned is an operand
+    like any other: no copy, no error."""
+    _, adj, x, flat = _random_ell(7, 3, 9, dtype, 3)
+    buf = torch.zeros(flat.size + 1, dtype=torch.as_tensor(flat).dtype)
+    buf[1:] = torch.as_tensor(flat).reshape(-1)
+    view = buf[1:].view(flat.shape)
+    assert view.is_contiguous() and view.storage_offset() == 1
+    got = ell_spmv(view, torch.as_tensor(adj), torch.as_tensor(x))
+    want = ell_spmv(torch.as_tensor(flat), torch.as_tensor(adj),
+                    torch.as_tensor(x))
+    assert torch.equal(got, want)
