@@ -19,9 +19,10 @@ Layout
 - ``mesh``   : meshes, generators, marking (numpy; shared native library)
 - ``fem``    : P1 assembly into block-ELL (``torch.func`` Jacobians), BCs
 - ``ops``    : hand-written CUDA kernels with their plain PyTorch versions
-- ``solve``  : small-block inverses, GMRES, z-slab direct solver, Newton,
-               time loop
-- ``models`` : the 3D GMPNP pore model
+- ``solve``  : small-block inverses, 1D block-tridiagonal solvers, GMRES,
+               z-slab direct solver, Newton, time loop
+- ``models`` : the 3D pore (GMPNP and reaction-diffusion), the 1D EDL and
+               the 1D reaction-diffusion models
 - ``io``     : npz/metadata/VTK writers
 - ``cli``    : command-line entry points
 """

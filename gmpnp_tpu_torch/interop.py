@@ -1,7 +1,7 @@
 """Numerical state from numpy arrays to port objects on a chosen device.
 
 The system has no learned weights; what moves between ``gmpnp_tpu`` and
-this port is numerical state — an assembled Jacobian, a slab
+this port is numerical state — an assembled Jacobian, a slab or CR
 factorization, Dirichlet data, the carried chord state.  These functions
 take numpy arrays as the reference hands them out (``np.asarray`` of its
 arrays) and build the port's objects from them.
@@ -14,6 +14,7 @@ import torch
 
 from gmpnp_tpu_torch.fem.assembly import BlockELL
 from gmpnp_tpu_torch.fem.dirichlet import DirichletBC
+from gmpnp_tpu_torch.solve.linear import CRFactors, _CRLevel
 from gmpnp_tpu_torch.solve.slab import SlabFactors, SlabPrepared
 from gmpnp_tpu_torch.solve.timeloop import ChordCarry
 
@@ -48,6 +49,17 @@ def slab_prepared_from_numpy(adj, flat, diag_slot, Dinv0, Dinv, Cp, Al,
                               for a in (Dinv, Cp, Al))))
 
 
+def cr_factors_from_numpy(levels, Binv_top, device="cpu") -> CRFactors:
+    """CRFactors from a block-CR factorization as numpy arrays: ``levels``
+    a sequence of (alpha, gamma, A_od, C_od, Binv_od) tuples, each (h, f,
+    f), and the (f, f) ``Binv_top`` (dtype kept, as in
+    blockell_from_numpy)."""
+    return CRFactors(
+        levels=tuple(_CRLevel(*(_float(a, device) for a in lev))
+                     for lev in levels),
+        Binv_top=_float(Binv_top, device))
+
+
 def dirichlet_from_numpy(mask, values, device="cpu") -> DirichletBC:
     """DirichletBC from an (N, f) bool mask and (N, f) values."""
     return DirichletBC(
@@ -55,10 +67,11 @@ def dirichlet_from_numpy(mask, values, device="cpu") -> DirichletBC:
         _float(values, device, torch.float64))
 
 
-def chord_carry_from_numpy(prep: SlabPrepared, du, dt_prev, du_nrm_prev,
+def chord_carry_from_numpy(prep, du, dt_prev, du_nrm_prev,
                            device="cpu") -> ChordCarry:
-    """ChordCarry from a SlabPrepared (see slab_prepared_from_numpy), the
-    (N, f) increment du and the scalars dt_prev and du_nrm_prev."""
+    """ChordCarry from a SlabPrepared or CRFactors (see
+    slab_prepared_from_numpy, cr_factors_from_numpy), the (N, f) increment
+    du and the scalars dt_prev and du_nrm_prev."""
     return ChordCarry(prep=prep, du=_float(du, device, torch.float64),
                       dt_prev=float(np.asarray(dt_prev)),
                       du_nrm_prev=float(np.asarray(du_nrm_prev)))

@@ -1,8 +1,14 @@
-"""3D cylindrical-pore GMPNP model for CO2ER.
+"""3D cylindrical-pore models for CO2ER: GMPNP and reaction–diffusion.
 
-Port of ``gmpnp_tpu/models/pore_3d.py`` (physics='GMPNP'): 8 species (H+,
-OH-, HCO3-, CO32-, CO2, CO, H2, cat+) + potential, steric fluxes, eps(c)
-permittivity, wall-potential Dirichlet (3D/MPNP_CO2ER_pore.py:96-1085).
+Port of ``gmpnp_tpu/models/pore_3d.py``:
+
+- GMPNP (``physics='GMPNP'``): 8 species (H+, OH-, HCO3-, CO32-, CO2, CO,
+  H2, cat+) + potential, steric fluxes, eps(c) permittivity,
+  wall-potential Dirichlet (3D/MPNP_CO2ER_pore.py:96-1085);
+- reaction-diffusion (``physics='rxn_diff'``): the 7-species neutral
+  comparison model (3D/rxn_diff_CO2ER_pore.py:95-784), the cation
+  recovered by electroneutrality.
+
 The Sechenov-corrected CO2 entry Dirichlet value is recomputed every step
 from median ion concentrations (3D/MPNP_CO2ER_pore.py:815-838) on the
 device.
@@ -10,10 +16,11 @@ device.
 **Orphaned-flux quirk.**  ``faithful=True`` (default) reproduces the
 published GMPNP script, whose boundary-flux terms are no-op statements, so
 only the Dirichlet BCs drive the solve; ``faithful=False`` includes the wall
-and exit fluxes (see the reference module's docstring).
+and exit fluxes (see the reference module's docstring).  The rxn-diff
+physics always includes them.
 
-Still to be ported (ROADMAP queue 1): ``physics='rxn_diff'``,
-checkpoint/resume, the sharded run and ``refresh='auto'``.
+Still to be ported (ROADMAP queue 1): checkpoint/resume, the sharded run
+and ``refresh='auto'``.
 """
 
 from __future__ import annotations
@@ -56,7 +63,8 @@ class Pore3DConfig:
     """The fields and defaults of ``gmpnp_tpu.models.pore_3d.Pore3DConfig``
     (see its comments)."""
     # reference CLI flags (3D/MPNP_CO2ER_pore.py:1088-1235)
-    physics: str = "GMPNP"             # 'GMPNP' ('rxn_diff' not yet ported)
+    physics: str = "GMPNP"             # 'GMPNP' | 'rxn_diff'
+    # (rxn_diff ignores voltage_multiplier)
     concentration_elec: float = 1.0
     voltage_multiplier: float = -1.0
     H2_FE: float = 0.05
@@ -170,16 +178,22 @@ class Pore3DProgram:
 
     def _theta_of_carry(self, carry, i):
         """Per-step Sechenov CO2 Dirichlet value from the previous solution
-        (ref :815-838) and the step's dt (staged on the first
-        ``dt_first_steps`` steps)."""
+        (ref :815-838; rxn-diff recovers the cation by electroneutrality,
+        3D/rxn_diff_CO2ER_pore.py:556-568) and the step's dt (staged on the
+        first ``dt_first_steps`` steps)."""
         cfg = self.config
         u, _ = carry
         idx = self.idx
         bc0 = self.bulk_conc
         med = lambda s: median(u[:, idx[s]]) * bc0[s]
         conc_ions = {
-            "OH": med("OH"), "HCO3": med("HCO3"), "CO32": med("CO32"),
-            cfg.cation: med(cfg.cation)}
+            "OH": med("OH"), "HCO3": med("HCO3"), "CO32": med("CO32")}
+        if cfg.physics == "GMPNP":
+            conc_ions[cfg.cation] = med(cfg.cation)
+        else:
+            conc_ions[cfg.cation] = (conc_ions["HCO3"]
+                                     + 2 * conc_ions["CO32"]
+                                     + conc_ions["OH"] - med("H"))
         # the model's own Sechenov table (cations absent from the reference
         # constant list salt out with h_ion = 0)
         h = dict(self.h_sechenov)
@@ -198,11 +212,12 @@ class Pore3DProgram:
         return self.bc.set_value(self._s1, self.idx["CO2"], theta["co2_s1"])
 
     def initial_state(self) -> torch.Tensor:
-        """All concentrations at bulk (1.0), potential grounded."""
+        """All concentrations at bulk (1.0), the GMPNP potential grounded."""
         cfg = self.config
         u0 = torch.ones((self.space.num_vertices, cfg.n_fields),
                         dtype=torch.float64, device=self.device)
-        u0[:, len(cfg.species)] = 0.0
+        if cfg.physics == "GMPNP":
+            u0[:, len(cfg.species)] = 0.0
         return u0
 
     def run(self, n_steps: Optional[int] = None,
@@ -262,10 +277,7 @@ def build(cfg: Pore3DConfig, device="cuda") -> Pore3DProgram:
     device tensors)."""
     if cfg.physics not in ("GMPNP", "rxn_diff"):
         raise ValueError(f"unknown physics {cfg.physics!r}")
-    if cfg.physics != "GMPNP":
-        raise NotImplementedError(
-            "physics='rxn_diff' is still to be ported (ROADMAP queue 1 "
-            "item 9)")
+    gmpnp = cfg.physics == "GMPNP"
     device = torch.device(device)
     f64 = dict(dtype=torch.float64, device=device)
     params = base.load_params(cfg.params_file)
@@ -275,7 +287,7 @@ def build(cfg: Pore3DConfig, device="cuda") -> Pore3DProgram:
     ns = len(species)
     nf = cfg.n_fields
     idx = {s: i for i, s in enumerate(species)}
-    P = ns
+    P = ns if gmpnp else None
 
     # effective in-layer diffusivities (Brakel & Heertjes form, ref :147-158)
     diff_coeff = {s: params.D(s) for s in species}
@@ -348,18 +360,21 @@ def build(cfg: Pore3DConfig, device="cuda") -> Pore3DProgram:
     }
     exit_coeff = {s: J_pref[s] * k_elec[s] * bulk_conc[s] for s in species}
 
-    w_cat = params.w(cfg.cation)
-    w_H = params.w("H")
-    C0_cat = bulk_conc[cfg.cation]
-    C0_H = bulk_conc["H"]
-    eps_rel = nat.eps_rel
-    cat_i = idx[cfg.cation]
+    if gmpnp:
+        w_cat = params.w(cfg.cation)
+        w_H = params.w("H")
+        C0_cat = bulk_conc[cfg.cation]
+        C0_H = bulk_conc["H"]
+        eps_rel = nat.eps_rel
+        cat_i = idx[cfg.cation]
 
     # per-quadrature-point integrand: pure torch (runs under vmap/jacfwd)
     def volume(u, gu, up, x, theta):
         uc, guc, upc = u[:ns], gu[:ns], up[:ns]
         R = kin(uc)
         fval_c = (uc - upc) / theta["dt"] - R
+        if not gmpnp:
+            return fval_c, guc
         fgrad_c = guc + z[:, None] * uc[:, None] * gu[P][None, :]
         denom = 1.0 - torch.sum(scale_vol * uc)
         if cfg.steric_clip:
@@ -377,7 +392,7 @@ def build(cfg: Pore3DConfig, device="cuda") -> Pore3DProgram:
         return fval, fgrad
 
     boundary = {}
-    if not cfg.faithful:
+    if not gmpnp or not cfg.faithful:
         wall_g = torch.zeros(nf, **f64)
         for s in ("OH", "CO2", "CO", "H2"):
             wall_g[idx[s]] = wall_flux[s]
@@ -410,13 +425,17 @@ def build(cfg: Pore3DConfig, device="cuda") -> Pore3DProgram:
     s2_verts = marker_verts(S2)
     s3_verts = marker_verts(S3)
 
-    # application order matters on shared rim vertices: the wall value wins
-    # (ref bcs list :460-467, applied in order)
-    entries = [(s1_verts, P, 0.0), (s3_verts, P, 0.0),
-               (s2_verts, P, cfg.voltage_multiplier),
-               (s1_verts, idx["CO2"], eq_conc["CO2"] / bulk_conc["CO2"]),
-               (s1_verts, idx["CO"], eq_conc["CO"] / bulk_conc["CO"]),
-               (s1_verts, idx["H2"], eq_conc["H2"] / bulk_conc["H2"])]
+    entries = []
+    if gmpnp:
+        # application order matters on shared rim vertices: the wall value
+        # wins (ref bcs list :460-467, applied in order)
+        entries += [(s1_verts, P, 0.0), (s3_verts, P, 0.0),
+                    (s2_verts, P, cfg.voltage_multiplier)]
+    entries += [
+        (s1_verts, idx["CO2"], eq_conc["CO2"] / bulk_conc["CO2"]),
+        (s1_verts, idx["CO"], eq_conc["CO"] / bulk_conc["CO"]),
+        (s1_verts, idx["H2"], eq_conc["H2"] / bulk_conc["H2"]),
+    ]
     bc = DirichletBC.from_vertex_sets(mesh.num_vertices, nf, entries,
                                       device=device)
 
@@ -451,7 +470,8 @@ def run(cfg: Pore3DConfig, out_root: Optional[str] = None,
         shard: Optional[int] = None,
         device="cuda"):
     """Full reference-parity run (npz/metadata/VTK key sets per
-    3D/MPNP_CO2ER_pore.py:862-1085) on ``device``.
+    3D/MPNP_CO2ER_pore.py:862-1085 and 3D/rxn_diff_CO2ER_pore.py:602-784)
+    on ``device``.
 
     record_stride=None (default) bounds the recorded history to ~1000
     snapshots for long runs (base.auto_record_stride)."""
@@ -473,7 +493,10 @@ def run(cfg: Pore3DConfig, out_root: Optional[str] = None,
 
     hist = np.concatenate([u0.cpu().numpy()[None], u_hist.cpu().numpy()],
                           axis=0)
-    names = ["H", "OH", "HCO3", "CO32", "CO2", "CO", "H2", "cat"]
+    gmpnp = cfg.physics == "GMPNP"
+    names = ["H", "OH", "HCO3", "CO32", "CO2", "CO", "H2"]
+    if gmpnp:
+        names.append("cat")
     sp_of = {nm: (cfg.cation if nm == "cat" else nm) for nm in names}
     unscaled = {nm: hist[:, :, idx[sp_of[nm]]] for nm in names}
 
@@ -553,16 +576,9 @@ def run(cfg: Pore3DConfig, out_root: Optional[str] = None,
         # divergence-triggered dt cuts advance less than the scheduled dt;
         # the recorded time axis stays nominal when any engaged
         "times_nominal_dt_cuts": bool((dt_scale < 1.0).any()),
-        "voltage_multiplier": cfg.voltage_multiplier,
     }
-
-    P = ns
-    unscaled["p"] = hist[:, :, P]
-    psi = unscaled["p"] * prog.thermal_voltage
-    field_values = project_gradient(
-        space, torch.as_tensor(hist[-1, :, P], dtype=torch.float64,
-                               device=prog.device),
-        sign=-1.0).cpu().numpy()
+    if gmpnp:
+        metadata["voltage_multiplier"] = cfg.voltage_multiplier
 
     result = {
         "unscaled": unscaled,
@@ -574,18 +590,29 @@ def run(cfg: Pore3DConfig, out_root: Optional[str] = None,
         "coor_array": coor,
         "metadata": metadata,
         "stats": stats,
-        "psi": psi,
-        "field_values": field_values,
     }
 
+    if gmpnp:
+        P = ns
+        unscaled["p"] = hist[:, :, P]
+        psi = unscaled["p"] * prog.thermal_voltage
+        field_values = project_gradient(
+            space, torch.as_tensor(hist[-1, :, P], dtype=torch.float64,
+                                   device=prog.device),
+            sign=-1.0).cpu().numpy()
+        result["psi"] = psi
+        result["field_values"] = field_values
+
     if write:
-        paths = make_run_dir(cfg.identifier, out_root=out_root, subdir="pore")
+        paths = make_run_dir(cfg.identifier, out_root=out_root,
+                             subdir="pore" if gmpnp else "pore_rxn_diff")
 
         unscaled_npz = {nm: unscaled[nm] for nm in names}
         unscaled_npz.update({f"{nm}_grad": grads[nm] for nm in names})
-        unscaled_npz.update({"coor": coor, "tau": tau_array,
-                             "p": unscaled["p"],
-                             "field_values": field_values})
+        unscaled_npz.update({"coor": coor, "tau": tau_array})
+        if gmpnp:
+            unscaled_npz.update({"p": unscaled["p"],
+                                 "field_values": field_values})
         save_npz(paths.file("arrays_unscaled.npz"), **unscaled_npz)
 
         scaled_npz = {"coor_scaled": coor * cfg.L}
@@ -593,28 +620,33 @@ def run(cfg: Pore3DConfig, out_root: Optional[str] = None,
             scaled_npz[f"t_{nm}"] = times[f"t_{nm}"]
             scaled_npz[f"c_{nm}"] = scaled[f"c_{nm}"]
         scaled_npz.update({f"{nm}_grad": grads_scaled[nm] for nm in names})
-        c_H, c_cat = scaled["c_H"], scaled["c_cat"]
-        w_cat = prog.params.w(cfg.cation)
-        w_H = prog.params.w("H")
-        eps_rel = prog.params.nat_const.eps_rel
-        eps_ss = (eps_rel * (55 - (w_cat * c_cat + w_H * c_H) * 1e-3) / 55
-                  + 6 * ((w_cat * c_cat + w_H * c_H) * 1e-3) / 55)
-        charge_density = (scaled["c_cat"][-1] - scaled["c_HCO3"][-1]
-                          - 2 * scaled["c_CO32"][-1]
-                          - scaled["c_OH"][-1] + scaled["c_H"][-1])
-        scaled_npz.update({
-            "psi": psi,
-            "eps_rel": eps_ss,
-            "field_values": field_values * prog.thermal_voltage / cfg.L,
-            "charge_density": charge_density,
-        })
+        if gmpnp:
+            c_H, c_cat = scaled["c_H"], scaled["c_cat"]
+            w_cat = prog.params.w(cfg.cation)
+            w_H = prog.params.w("H")
+            eps_rel = prog.params.nat_const.eps_rel
+            eps_ss = (eps_rel * (55 - (w_cat * c_cat + w_H * c_H) * 1e-3) / 55
+                      + 6 * ((w_cat * c_cat + w_H * c_H) * 1e-3) / 55)
+            charge_density = (scaled["c_cat"][-1] - scaled["c_HCO3"][-1]
+                              - 2 * scaled["c_CO32"][-1]
+                              - scaled["c_OH"][-1] + scaled["c_H"][-1])
+            scaled_npz.update({
+                "psi": psi,
+                "eps_rel": eps_ss,
+                "field_values": field_values * prog.thermal_voltage / cfg.L,
+                "charge_density": charge_density,
+            })
+        else:
+            scaled_npz["c_cat"] = (scaled["c_HCO3"] + 2 * scaled["c_CO32"]
+                                   + scaled["c_OH"] - scaled["c_H"])
         save_npz(paths.file("arrays_scaled.npz"), **scaled_npz)
         save_metadata(paths.file("metadata.json"), metadata)
 
         if write_vtk:
             # final-state VTK per species (ref :862-880)
             vtk_fields = {nm: hist[-1, :, idx[sp_of[nm]]] for nm in names}
-            vtk_fields["p"] = hist[-1, :, ns]
+            if gmpnp:
+                vtk_fields["p"] = hist[-1, :, ns]
             for nm, arr in vtk_fields.items():
                 vtu = f"solution_{nm if nm != 'cat' else cfg.cation}.vtu"
                 write_vtu(paths.file(vtu), prog.mesh.points,

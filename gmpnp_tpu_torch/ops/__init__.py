@@ -6,7 +6,8 @@ Kernels:
   (``csrc/ell_spmv.cu``, f32 and f64) — the port of
   ``gmpnp_tpu/ops/ell_spmv.py::ell_block_contract_pallas``.  It is the
   matvec of the carried-mode f32 chord GMRES (``solve.slab.slab_apply_f32``)
-  and of ``fem.assembly.BlockELL.matvec`` on CUDA tensors.
+  and of ``fem.assembly.BlockELL.matvec`` on CUDA tensors: the f64 GMRES
+  of the exact slab path and of the 1D ``solve.linear.tridiag_mp_solve``.
 """
 
 from gmpnp_tpu_torch.ops.ell_spmv import LAUNCHES, ell_spmv, ell_spmv_reference

@@ -1,22 +1,250 @@
-"""Krylov and dense solvers over BlockELL matrices.
+"""Linear solvers over block structures.
 
-Ported so far: restarted GMRES (CGS2 Arnoldi, Givens residual tracking) —
-the Krylov iteration of the z-slab direct solver (solve.slab) — and the
-dense direct solve used by tests.  The 1D block-tridiagonal solvers,
+- 1D coupled P1 systems are block-tridiagonal (f x f blocks): solved
+  exactly by block cyclic reduction (log2 N batched levels) or by a
+  sequential block-Thomas loop (the oracle), and by ``tridiag_mp_solve``
+  (an f32 CR factorization preconditioning f64 GMRES).
+- Restarted GMRES (CGS2 Arnoldi, Givens residual tracking) is the Krylov
+  iteration of the z-slab direct solver (solve.slab) and of
+  ``tridiag_mp_solve``; its matvec is the block-ELL kernel on CUDA tensors.
+- ``dense_solve`` for tests and small systems.
+
 BiCGStab and the block-Jacobi/SSOR preconditioners of
 ``gmpnp_tpu/solve/linear.py`` are still to be ported (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from gmpnp_tpu_torch.fem.assembly import BlockELL
-from gmpnp_tpu_torch.solve.smallblock import triangular_solve_upper
+from gmpnp_tpu_torch.solve.smallblock import (
+    block_inv, block_solve, range_clamp, triangular_solve_upper)
 from gmpnp_tpu_torch.sync import to_host
+
+
+# ---------------------------------------------------------------------------
+# Block tridiagonal (1D direct)
+# ---------------------------------------------------------------------------
+
+def block_tridiag_from_ell(ell: BlockELL):
+    """(lower, diag, upper) block bands, each (N, f, f), of a BlockELL
+    matrix whose mesh vertices are sorted along the line (adjacency
+    {n-1, n, n+1}); lower[0] and upper[N-1] are zero."""
+    N, K, f, _ = ell.shape4
+    assert K <= 3, "not a tridiagonal pattern"
+    dev = ell.flat.device
+    cols = torch.arange(f, device=dev)
+
+    def slot_block(slot):
+        # block `slot[n]` of the flat (N, f, K*f) layout
+        idx = slot[:, None, None] * f + cols[None, None, :]
+        return torch.gather(ell.flat, 2, idx.expand(N, f, f))
+
+    rows = torch.arange(N, device=dev)
+    zero = torch.zeros((), dtype=ell.flat.dtype, device=dev)
+    diag = slot_block(ell.diag_slot)
+    lower = slot_block(torch.clamp(ell.diag_slot - 1, 0, K - 1))
+    upper = slot_block(torch.clamp(ell.diag_slot + 1, 0, K - 1))
+    lower = torch.where((rows > 0)[:, None, None], lower, zero)
+    upper = torch.where((rows < N - 1)[:, None, None], upper, zero)
+    return lower, diag, upper
+
+
+def _mv(A, x):
+    """Batched (n, f, f) @ (n, f)."""
+    return torch.einsum("nij,nj->ni", A, x)
+
+
+def block_tridiag_solve_thomas(lower, diag, upper, rhs):
+    """Sequential block-Thomas algorithm (exact; the oracle path): the
+    reference's forward and reverse ``lax.scan`` as Python loops.
+
+    lower/diag/upper: (N, f, f); rhs: (N, f).  Returns x: (N, f)."""
+    N, f, _ = diag.shape
+    Cp = torch.zeros((f, f), dtype=diag.dtype, device=diag.device)
+    dp = torch.zeros((f,), dtype=diag.dtype, device=diag.device)
+    Cps, dps = [], []
+    for A, B, C, d in zip(lower, diag, upper, rhs):
+        dinv = block_inv(B - A @ Cp)
+        Cp, dp = dinv @ C, dinv @ (d - A @ dp)
+        Cps.append(Cp)
+        dps.append(dp)
+    x = torch.zeros((f,), dtype=diag.dtype, device=diag.device)
+    xs = [None] * N
+    for n in range(N - 1, -1, -1):
+        x = dps[n] - Cps[n] @ x
+        xs[n] = x
+    return torch.stack(xs)
+
+
+def _pow2(N: int) -> int:
+    M = 1
+    while M < N:
+        M *= 2
+    return M
+
+
+def _identity_pad(A, B, C, n_pad):
+    """Append n_pad identity rows (zero off-diagonal blocks)."""
+    if n_pad == 0:
+        return A, B, C
+    f = B.shape[-1]
+    eye = torch.eye(f, dtype=B.dtype, device=B.device).expand(n_pad, f, f)
+    zed = torch.zeros((n_pad, f, f), dtype=B.dtype, device=B.device)
+    return (torch.cat([A, zed]), torch.cat([B, eye]), torch.cat([C, zed]))
+
+
+def block_tridiag_solve_cr(lower, diag, upper, rhs):
+    """Block cyclic reduction: exact direct solve in log2(N) batched
+    levels.  Every level product is range-clamped (the reference's guard,
+    kept for parity: near-singular odd blocks during a Newton excursion
+    otherwise cascade magnitudes across levels)."""
+    dtype, dev = diag.dtype, diag.device
+    N, f, _ = diag.shape
+    M = _pow2(N)
+    A, B, C = _identity_pad(lower, diag, upper, M - N)
+    D = torch.cat([rhs, torch.zeros((M - N, f), dtype=dtype, device=dev)])
+
+    eye1 = torch.eye(f, dtype=dtype, device=dev)[None]
+    zed1 = torch.zeros((1, f, f), dtype=dtype, device=dev)
+    zv1 = torch.zeros((1, f), dtype=dtype, device=dev)
+    stack = []
+    while A.shape[0] > 1:
+        m = A.shape[0]
+        # ghost rows (identity) at both ends for the odd-neighbor accesses
+        Ap = torch.cat([zed1, A, zed1])
+        Bp = torch.cat([eye1, B, eye1])
+        Cp = torch.cat([zed1, C, zed1])
+        Dp = torch.cat([zv1, D, zv1])
+        # even rows 1, 3, .., m-1 in padded indexing; their left odd
+        # neighbors 0, 2, .., m-2 and right ones 2, 4, .., m
+        ev, lo, hi = slice(1, m, 2), slice(0, m - 1, 2), slice(2, m + 1, 2)
+        alpha = range_clamp(Ap[ev] @ block_inv(Bp[lo]))
+        gamma = range_clamp(Cp[ev] @ block_inv(Bp[hi]))
+
+        A_new = range_clamp(-alpha @ Ap[lo])
+        B_new = range_clamp(Bp[ev] - alpha @ Cp[lo] - gamma @ Ap[hi])
+        C_new = range_clamp(-gamma @ Cp[hi])
+        D_new = range_clamp(Dp[ev] - _mv(alpha, Dp[lo]) - _mv(gamma, Dp[hi]))
+
+        stack.append((A, B, C, D))
+        A, B, C, D = A_new, B_new, C_new, D_new
+
+    x = block_solve(B, D)                           # (1, f)
+
+    # back substitution: interleave odd solutions level by level
+    for A_l, B_l, C_l, D_l in reversed(stack):
+        m = A_l.shape[0]
+        x_even = x                                   # (m/2, f)
+        # odd row 2j+1 sits between even x_j and x_{j+1}
+        x_right = torch.cat([x_even[1:], zv1])
+        rhs_od = range_clamp(D_l[1::2] - _mv(A_l[1::2], x_even)
+                             - _mv(C_l[1::2], x_right))
+        x_odd = range_clamp(block_solve(B_l[1::2], rhs_od))
+        x = torch.stack([x_even, x_odd], dim=1).reshape(m, f)
+
+    return x[:N]
+
+
+class _CRLevel(NamedTuple):
+    """Per-level factors of a block-cyclic-reduction factorization.
+
+    h = m/2 rows at this level; alpha/gamma reduce the rhs downward,
+    A_od/C_od/Binv_od back-substitute the odd rows upward.  Binv_od serves
+    both the reduction and the back-substitution, so each odd block is
+    inverted once."""
+    alpha: torch.Tensor    # (h, f, f)  A_even @ inv(B_leftodd)
+    gamma: torch.Tensor    # (h, f, f)  C_even @ inv(B_rightodd)
+    A_od: torch.Tensor     # (h, f, f)  odd rows' lower band
+    C_od: torch.Tensor     # (h, f, f)  odd rows' upper band
+    Binv_od: torch.Tensor  # (h, f, f)  inverse of odd rows' diagonal
+
+
+class CRFactors(NamedTuple):
+    levels: Tuple[_CRLevel, ...]
+    Binv_top: torch.Tensor   # (f, f) inverse of the final 1x1-block system
+
+
+def block_tridiag_factor_cr(lower, diag, upper) -> CRFactors:
+    """Factorization half of block cyclic reduction: everything that
+    depends only on the matrix, so one factorization serves many
+    right-hand sides (the carried 1D chord step; the f32 factorization of
+    ``tridiag_mp_solve``)."""
+    dtype, dev = diag.dtype, diag.device
+    N, f, _ = diag.shape
+    A, B, C = _identity_pad(lower, diag, upper, _pow2(N) - N)
+
+    eye1 = torch.eye(f, dtype=dtype, device=dev)[None]
+    zed1 = torch.zeros((1, f, f), dtype=dtype, device=dev)
+    levels = []
+    while A.shape[0] > 1:
+        A_od, B_od, C_od = A[1::2], B[1::2], C[1::2]
+        Binv_od = block_inv(B_od)
+        # even row 2j's left odd neighbor is 2j-1 (ghost identity at j=0),
+        # its right odd neighbor is 2j+1; level products range-clamped
+        Binv_left = torch.cat([eye1, Binv_od[:-1]])
+        alpha = range_clamp(A[0::2] @ Binv_left)
+        gamma = range_clamp(C[0::2] @ Binv_od)
+        levels.append(_CRLevel(alpha, gamma, A_od, C_od, Binv_od))
+        A_left = torch.cat([zed1, A_od[:-1]])
+        C_left = torch.cat([zed1, C_od[:-1]])
+        A, B, C = (range_clamp(-alpha @ A_left),
+                   range_clamp(B[0::2] - alpha @ C_left - gamma @ A_od),
+                   range_clamp(-gamma @ C_od))
+    return CRFactors(levels=tuple(levels), Binv_top=block_inv(B[0]))
+
+
+def block_tridiag_apply_cr(factors: CRFactors, rhs: torch.Tensor):
+    """Solve with a prepared CR factorization.  rhs: (N, f) in the
+    factorization's dtype (padded rows solve to 0 exactly)."""
+    N, f = rhs.shape
+    M = 2 ** len(factors.levels)
+    zv1 = torch.zeros((1, f), dtype=rhs.dtype, device=rhs.device)
+    D = rhs
+    if M > N:
+        D = torch.cat([D, zv1.expand(M - N, f)])
+
+    odd_rhs = []
+    for lev in factors.levels:
+        D_ev, D_od = D[0::2], D[1::2]
+        odd_rhs.append(D_od)
+        D_left = torch.cat([zv1, D_od[:-1]])
+        D = range_clamp(D_ev - _mv(lev.alpha, D_left) - _mv(lev.gamma, D_od))
+
+    x = (factors.Binv_top @ D[0])[None]               # (1, f)
+    for lev, D_od in zip(reversed(factors.levels), reversed(odd_rhs)):
+        x_right = torch.cat([x[1:], zv1])
+        r_od = range_clamp(D_od - _mv(lev.A_od, x) - _mv(lev.C_od, x_right))
+        x_odd = range_clamp(_mv(lev.Binv_od, r_od))
+        x = torch.stack([x, x_odd], dim=1).reshape(2 * x.shape[0], f)
+    return x[:N]
+
+
+def tridiag_mp_solve(ell: BlockELL, rhs: torch.Tensor,
+                     tol: float = 1.0e-8, max_refine: int = 40):
+    """Mixed-precision 1D direct solve (``LinearConfig(kind='tridiag_cr',
+    solve_dtype='f32')``): block-row equilibration in f64 (diagonal blocks
+    to identity), one f32 CR factorization, then f64 CGS2-GMRES on the
+    equilibrated system preconditioned by the f32 CR apply.  The GMRES
+    matvec is ``BlockELL.matvec``: the block-ELL kernel in f64 on CUDA
+    tensors.  Returns a KrylovResult in the rhs dtype."""
+    Dinv0 = block_inv(ell.diag_blocks())
+    ell_eq = ell.scale_rows(Dinv0)
+    b = _mv(Dinv0, rhs)
+    lo, di, up = block_tridiag_from_ell(ell_eq)
+    fac = block_tridiag_factor_cr(lo.to(torch.float32),
+                                  di.to(torch.float32),
+                                  up.to(torch.float32))
+
+    def solve32(r):
+        return block_tridiag_apply_cr(fac, r.to(torch.float32)).to(rhs.dtype)
+
+    return gmres(ell_eq.matvec, b, Minv=solve32, tol=tol,
+                 restart=min(max_refine, 30), maxiter=max_refine)
 
 
 class KrylovResult(NamedTuple):

@@ -9,9 +9,10 @@ Sechenov Dirichlet updates (3D/MPNP_CO2ER_pore.py:815-838) — enters through
 ``theta``: a dict produced per step by a model-supplied carry update.
 
 Ported so far: the 3D slab path (``kind='slab_direct'`` with
-``refresh`` in {'iter', 'step', 'carried'}) and the dense test solver.  The
-1D kinds, the Krylov kinds and ``calibrate_refresh`` (``refresh='auto'``)
-are still to be ported (ROADMAP queue 1).
+``refresh`` in {'iter', 'step', 'carried'}), the 1D block-tridiagonal
+kinds (``tridiag_cr``, also carried, and ``tridiag_thomas``) and the dense
+test solver.  The Krylov kinds and ``calibrate_refresh``
+(``refresh='auto'``) are still to be ported (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -26,7 +27,15 @@ import torch
 from gmpnp_tpu_torch.fem.assembly import FemSpace
 from gmpnp_tpu_torch.fem.dirichlet import DirichletBC
 from gmpnp_tpu_torch.fem.forms import WeakForm
-from gmpnp_tpu_torch.solve.linear import dense_solve
+from gmpnp_tpu_torch.solve.linear import (
+    block_tridiag_apply_cr,
+    block_tridiag_factor_cr,
+    block_tridiag_from_ell,
+    block_tridiag_solve_cr,
+    block_tridiag_solve_thomas,
+    dense_solve,
+    tridiag_mp_solve,
+)
 from gmpnp_tpu_torch.solve.newton import newton_solve
 from gmpnp_tpu_torch.solve.slab import (
     SlabPlan,
@@ -68,12 +77,17 @@ class LinearConfig:
     (see its docstring).
 
     Ported: kind 'slab_direct' (z-slab mixed-precision direct solver,
-    solve.slab) and 'dense' (tests), refresh 'iter' (exact Newton), 'step'
-    (one factorization per step) and 'carried' (factorization carried
-    across steps, chord Newton — ``make_carried_step``).  The Krylov-kind
-    fields (atol, restart, maxiter, precond, ssor_sweeps, solve_dtype)
-    come with those kinds (ROADMAP queue 1).  The reference's ``matvec``
-    selector has no counterpart: a CUDA tensor always takes the kernel."""
+    solve.slab), 'tridiag_cr' (1D block cyclic reduction) and
+    'tridiag_thomas' (1D oracle), 'dense' (tests); refresh 'iter' (exact
+    Newton), 'step' (one slab factorization per step) and 'carried'
+    (factorization carried across steps, chord Newton —
+    ``make_carried_step``).  ``solve_dtype`` is read by 'tridiag_cr' only:
+    'f32' selects ``tridiag_mp_solve`` (f32 CR factorization, f64 GMRES
+    polish over the block-ELL kernel) in place of the all-f64 CR.  The
+    other Krylov-kind fields (atol, restart, maxiter, precond,
+    ssor_sweeps) come with those kinds (ROADMAP queue 1).  The reference's
+    ``matvec`` selector has no counterpart: a CUDA tensor always takes the
+    kernel."""
     kind: str = "tridiag_cr"
     tol: float = 1.0e-8
     max_refine: int = 40
@@ -86,6 +100,7 @@ class LinearConfig:
     chord_dtype: str = "f32"
     chord_predict: bool = True
     jac_dtype: str = "f64"
+    solve_dtype: str = "f64"
 
 
 class StepStats(NamedTuple):
@@ -100,7 +115,7 @@ class StepStats(NamedTuple):
 
 _LINEAR_KINDS = ("tridiag_cr", "tridiag_thomas", "dense", "slab_direct",
                  "gmres", "bicgstab")
-_PORTED_KINDS = ("dense", "slab_direct")
+_PORTED_KINDS = ("dense", "slab_direct", "tridiag_cr", "tridiag_thomas")
 
 
 def _validate_linear_config(cfg: LinearConfig) -> None:
@@ -115,14 +130,14 @@ def _validate_linear_config(cfg: LinearConfig) -> None:
     if cfg.slab_mode not in ("thomas", "cr"):
         raise ValueError(f"slab_mode must be 'thomas' or 'cr', got "
                          f"{cfg.slab_mode!r}")
-    for name in ("jac_dtype", "chord_dtype"):
+    for name in ("jac_dtype", "chord_dtype", "solve_dtype"):
         if getattr(cfg, name) not in ("f32", "f64"):
             raise ValueError(f"{name} must be 'f32' or 'f64', got "
                              f"{getattr(cfg, name)!r}")
     if cfg.kind not in _PORTED_KINDS:
         raise NotImplementedError(
             f"linear kind {cfg.kind!r} is still to be ported (ROADMAP "
-            f"queue 1: 1D solvers item 10, Krylov kinds item 15)")
+            f"queue 1: Krylov kinds item 15)")
     if cfg.jac_dtype != "f64":
         raise NotImplementedError(
             "jac_dtype='f32' is still to be ported (ROADMAP queue 1)")
@@ -180,6 +195,16 @@ def make_linear_solver(space: FemSpace, form: WeakForm, cfg: LinearConfig):
 
         def lin(u, r):
             ell = assemble(u)
+            if cfg.kind == "tridiag_cr":
+                if cfg.solve_dtype == "f32":
+                    res = tridiag_mp_solve(ell, r, tol=cfg.tol,
+                                           max_refine=cfg.max_refine)
+                    return res.x, res.iters
+                return block_tridiag_solve_cr(*block_tridiag_from_ell(ell),
+                                              r), 0
+            if cfg.kind == "tridiag_thomas":
+                return block_tridiag_solve_thomas(
+                    *block_tridiag_from_ell(ell), r), 0
             if cfg.kind == "dense":
                 return dense_solve(ell, r), 0
             res = slab_direct_solve(ell, r, slab_plan, tol=cfg.tol,
@@ -238,7 +263,8 @@ class ChordCarry(NamedTuple):
     """State of the carried-factor chord Newton step, threaded from step to
     step (all of it derived data):
 
-    - ``prep``: the stale factorization (solve.slab.SlabPrepared);
+    - ``prep``: the stale factorization (solve.slab.SlabPrepared in 3D,
+      solve.linear.CRFactors in 1D);
     - ``du``: the previous accepted step's increment u_n - u_{n-1} (zeros
       at init — the first step predicts u_prev);
     - ``dt_prev``: the dt that produced ``du``;
@@ -270,9 +296,12 @@ def make_carried_step(
     a chord iteration certified on the true f64 residual, with a budget of
     ``linear_cfg.chord_max_iter`` iterations, started from the decay-scaled
     extrapolation ``u_prev + clip(rho*dt/dt_prev, 0, 1.5) * du`` when
-    ``chord_predict``.  With ``chord_dtype='f32'`` the chord directions
-    come from ``slab_apply_f32`` (f32 GMRES whose matvec is the block-ELL
-    kernel).  The factorization is rebuilt only when
+    ``chord_predict``.  The carried factorization is the slab one
+    (``kind='slab_direct'``; with ``chord_dtype='f32'`` the chord directions
+    come from ``slab_apply_f32``, f32 GMRES whose matvec is the block-ELL
+    kernel) or, in 1D (``kind='tridiag_cr'``), the all-f64 CR factorization,
+    whose apply is exact for the stale matrix (no linear iterations).  The
+    factorization is rebuilt only when
 
     - the chord attempt does not converge: the step is re-solved with exact
       Newton from the safe u_prev (identical to refresh='iter') and the
@@ -281,19 +310,28 @@ def make_carried_step(
       iterations (the factor is refreshed for the next step).
     """
     _validate_linear_config(linear_cfg)
-    if linear_cfg.kind != "slab_direct":
-        raise NotImplementedError(
-            f"make_carried_step: kind {linear_cfg.kind!r} — the 1D carried "
-            f"step (tridiag_cr) is still to be ported (ROADMAP queue 1 "
-            f"item 10)")
+    if linear_cfg.kind not in ("slab_direct", "tridiag_cr"):
+        raise ValueError(
+            "make_carried_step requires a direct kind whose factorization "
+            "can ride the carry ('slab_direct' for 3D, 'tridiag_cr' for "
+            f"1D), got {linear_cfg.kind!r}")
     full_f32_precision()
-    plan = _slab_plan(space, linear_cfg)
 
-    def prep_of(u, u_prev, theta, bc):
+    def assemble(u, u_prev, theta, bc):
         aux = theta.get("_aux") if isinstance(theta, dict) else None
-        ell = bc.apply_to_jacobian(
+        return bc.apply_to_jacobian(
             space.jacobian(form, u, u_prev, theta, aux=aux))
-        return slab_prepare(ell, plan, mode=linear_cfg.slab_mode)
+
+    if linear_cfg.kind == "slab_direct":
+        plan = _slab_plan(space, linear_cfg)
+
+        def prep_of(u, u_prev, theta, bc):
+            return slab_prepare(assemble(u, u_prev, theta, bc), plan,
+                                mode=linear_cfg.slab_mode)
+    else:
+        def prep_of(u, u_prev, theta, bc):
+            return block_tridiag_factor_cr(
+                *block_tridiag_from_ell(assemble(u, u_prev, theta, bc)))
 
     def prep_init(u0, theta):
         bc = bc_of_theta(theta)
@@ -309,7 +347,12 @@ def make_carried_step(
 
     chord_tol = (linear_cfg.tol if linear_cfg.chord_tol is None
                  else linear_cfg.chord_tol)
-    if linear_cfg.chord_dtype == "f32":
+    if linear_cfg.kind == "tridiag_cr":
+        def lin_of(p):
+            def lin(u, r):
+                return block_tridiag_apply_cr(p, r), 0
+            return lin
+    elif linear_cfg.chord_dtype == "f32":
         # the f32 Givens recursion stalls below ~1e-6 relative, so the
         # tolerance is floored there (the reference's rule)
         tol32 = max(chord_tol, 1.0e-6)

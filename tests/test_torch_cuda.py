@@ -1,5 +1,6 @@
-"""The port on a CUDA card: each kernel against its plain version, and a
-short transient on the card against the same transient on the CPU.
+"""The port on a CUDA card: each kernel against its plain version, the 1D
+cyclic reduction on the card against the CPU, and a short transient on the
+card against the same transient on the CPU.
 
 These tests need a card and skip without one.  They import neither jax nor
 gmpnp_tpu, so they run on a machine that has only PyTorch:
@@ -7,8 +8,10 @@ gmpnp_tpu, so they run on a machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 
 Tolerances: the kernel in f32 1e-5 and in f64 1e-12 relative L2 (another
-summation order); card vs CPU states 1e-6 relative L2 (the f32-chord band:
-the chord directions are f32 GMRES solves).  Two launches on the same
+summation order); the CR factor + apply in f64 1e-12 and in f32 1e-5
+(another summation order in the small matmuls); card vs CPU states 1e-6
+relative L2 (the f32-chord band: the chord directions are f32 GMRES
+solves).  Two launches on the same
 operands are bitwise equal (the kernel's order of summation is fixed).
 """
 
@@ -34,7 +37,12 @@ def cuda_device():
 
 @pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5),
                                        (np.float64, 1e-12)])
-@pytest.mark.parametrize("N,K,f", [(2501, 15, 9), (1000, 7, 3)])
+# the pore's shapes for GMPNP (f=9) and reaction-diffusion (f=7), an edge
+# shape, and the 1D models' (L_n = 50 um) for the EDL (f=7) and
+# reaction-diffusion (f=5) models
+@pytest.mark.parametrize("N,K,f", [(2501, 15, 9), (1000, 7, 3),
+                                   (2501, 15, 7), (5991, 3, 7),
+                                   (5991, 3, 5)])
 def test_kernel_matches_plain_version(cuda_device, N, K, f, dtype, tol):
     rng = np.random.default_rng(5)
     flat = rng.normal(size=(N, f, K * f)).astype(dtype)
@@ -99,6 +107,32 @@ def test_kernel_on_a_side_stream(cuda_device, dtype, tol):
     ref = ell_spmv_reference(flat, adj, x)
     assert torch.equal(y, y_side)
     assert float((y_side - ref).norm() / ref.norm()) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_cr_factor_apply_card_matches_cpu(cuda_device, dtype, tol):
+    from gmpnp_tpu_torch.solve.linear import (
+        block_tridiag_apply_cr, block_tridiag_factor_cr)
+    from gmpnp_tpu_torch.testing import rel_l2
+
+    rng = np.random.default_rng(9)
+    N, f = 5991, 7
+    lower = rng.normal(size=(N, f, f)) * 0.2
+    upper = rng.normal(size=(N, f, f)) * 0.2
+    diag = rng.normal(size=(N, f, f)) * 0.2 + 3.0 * np.eye(f)
+    lower[0] = 0.0
+    upper[-1] = 0.0
+    rhs = rng.normal(size=(N, f))
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        bands = [torch.as_tensor(a, dtype=dtype, device=dev)
+                 for a in (lower, diag, upper, rhs)]
+        fac = block_tridiag_factor_cr(*bands[:3])
+        x = block_tridiag_apply_cr(fac, bands[3])
+        assert x.dtype == dtype and x.device.type == torch.device(dev).type
+        out[str(dev)] = x.cpu().numpy()
+    assert rel_l2(out["cuda"], out["cpu"]) <= tol
 
 
 def test_carried_transient_card_matches_cpu(cuda_device):

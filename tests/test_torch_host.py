@@ -78,7 +78,9 @@ def test_mesh_space_and_slab_plan_bit_identical(L, R, kw):
 COPIED = ["constants.py", "config.py", "native.py", "chem/bulk.py",
           "mesh/__init__.py", "mesh/core.py", "mesh/generators.py",
           "mesh/marking.py", "mesh/dolfin_xml.py", "io/__init__.py",
-          "io/vtk.py", "io/writers.py", "fem/elements.py", "models/base.py"]
+          "io/vtk.py", "io/writers.py", "fem/elements.py", "models/base.py",
+          "models/stern.py", "cli/stern.py", "cli/bulk_soln.py",
+          "cli/mesh_tests.py"]
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -93,8 +95,13 @@ def test_copied_module_matches_original_source(rel):
     assert read("gmpnp_tpu_torch") == original
 
 
+CLIS = ["pore_3d", "rxn_diff_3d", "edl_1d", "rxn_diff_1d", "stern",
+        "bulk_soln", "mesh_tests"]
+
+
 def test_cli_import_loads_no_jax():
-    code = ("import sys; import gmpnp_tpu_torch.cli.pore_3d; "
+    imports = "; ".join(f"import gmpnp_tpu_torch.cli.{c}" for c in CLIS)
+    code = (f"import sys; {imports}; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'gmpnp_tpu' "
             "or m.startswith('gmpnp_tpu.')]; "
@@ -103,6 +110,48 @@ def test_cli_import_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_stern_sweep_matches_golden():
+    """The copied Stern post-solve against the reference-written golden at
+    its own rtol 1e-12 (tests/test_goldens.py)."""
+    from gmpnp_tpu_torch.models import stern
+    from gmpnp_tpu_torch.testing import GoldenFile
+
+    data = {str(v): {"voltage_electrode": r["voltage_electrode"],
+                     "field_surf": r["field_surf"]}
+            for v, r in stern.run(write=False).items()}
+    msg = GoldenFile(os.path.join(REPO, "tests", "goldens",
+                                  "stern_sweep.json"), rtol=1e-12).check(data)
+    assert msg is None, msg
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("stern", ["--out_root", "{tmp}"]),
+    ("bulk_soln", ["--conc", "0.1", "--out_dir", "{tmp}"]),
+    ("mesh_tests", ["--L", "50e-9", "--R", "5e-9"]),
+])
+def test_host_clis_match_reference(name, argv, tmp_path):
+    """The copied host-only CLIs return what the reference's return."""
+    import importlib
+
+    out = {}
+    for pkg in ("gmpnp_tpu", "gmpnp_tpu_torch"):
+        cli = importlib.import_module(f"{pkg}.cli.{name}")
+        tmp = tmp_path / pkg
+        tmp.mkdir()
+        out[pkg] = cli.main([a.format(tmp=tmp) for a in argv])
+    ref, got = out["gmpnp_tpu"], out["gmpnp_tpu_torch"]
+    if name == "stern":
+        assert set(got) == set(ref)
+        for v in ref:
+            assert got[v]["field_surf"] == ref[v]["field_surf"]
+    elif name == "bulk_soln":
+        assert got.post_pH == ref.post_pH
+        assert sorted(os.listdir(tmp_path / "gmpnp_tpu_torch")) == \
+            sorted(os.listdir(tmp_path / "gmpnp_tpu"))
+    else:
+        assert got == ref
 
 
 def test_native_boundary_facets_match_numpy(monkeypatch):
