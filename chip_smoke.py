@@ -9,7 +9,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of every path of phase 4 (the L=50 nm, R=5 nm pore: N=2,501,
    K=15, f=9 for GMPNP, the f=9 kernel, and f=7 for reaction-diffusion,
-   the generic-f kernel; the 1D EDL model at L_n=50 um: N=5,991, K=3, f=7)
+   the generic-f kernel; the 1D EDL model at L_n=50 um: N=5,991, K=3, f=7;
+   the pore's first AMG coarse level: N=98, K=15, f=9, f32 and f64)
    and at an edge shape (N=1,000, K=7, f=3), in turns (plain, kernel,
    kernel, plain): median times over 30
    CUDA-event-timed calls (host launch cost included); device time per
@@ -35,6 +36,31 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    - ``solve.linear.tridiag_mp_solve`` on the EDL cold-start Jacobian at
      N=5,991 (f64 GMRES over the f64 kernel), held to the all-f64 CR
      solve, with both solves' times;
+   - checkpoint/resume through the CLIs: the pore at L50R5, exact then
+     carried, 2 steps checkpointed every step and then 4 from the same
+     directory (only steps 2-3 run), against an uninterrupted 4-step run
+     (exact: within 1e-12; carried: every step converged, the distances
+     printed — a resume rebuilds the factorization, so it stops at another
+     point inside the Newton tolerance); the EDL CLI (H_OHP 1.1, exact),
+     5 + 5 steps against 10, within 1e-12 with the same proton current;
+   - sweeps: ``run_pore_voltage_sweep`` at L50R5 (carried, -0.5/-1.0/-1.5
+     V, 3 steps) and ``run_edl_voltage_sweep`` at L_n=50 um (-0.5/-1.0/-2.0,
+     5 steps, no kernel), each lane against its single-lane sweep (1e-12)
+     and the model's own run at that voltage (1e-5), and a K/Cs x 2-lane x
+     2-step ``run_pore_voltage_cation_sweep``, with per-lane lines;
+   - the Krylov fallbacks on the L50R5 cold-start Jacobian (BiCGStab +
+     block-Jacobi f64, GMRES + block-Jacobi f32, GMRES + SSOR f64, GMRES +
+     AMG f64 and f32): iterations, the true residual recomputed in f64
+     (converged => at most 1.5 tol), ms, host syncs, launches by shape; the
+     same solves on the (2, 10) pore on the card and the CPU (same
+     converged flags, iterations within 10%);
+   - one exact Newton step with BiCGStab (tol 1e-10, 20,000 iterations)
+     against slab_direct: at L50R5 when a cold-start BiCGStab solve there
+     converges (printed), and held at tests/test_slab.py's (L=100 nm,
+     R=10 nm, (2, 8)) to its bar; 2 exact steps each with
+     ``slab_mode='cr'`` (against Thomas: the same Newton iterations, 1e-6,
+     both factorizations timed) and ``jac_dtype='f32'``; the pore CLI with
+     ``--linear_refresh auto`` (3 steps, the calibration printed);
 5. checks: 3-step carried runs on the (2, 10) mesh on the card and on the
    CPU for both pore physics (same Newton iterations; states within 1e-6,
    for reaction-diffusion at tight Newton tolerances), 3-step exact runs on
@@ -68,6 +94,7 @@ this, this, other.
 import argparse
 import contextlib
 import dataclasses
+import functools
 import importlib
 import json
 import os
@@ -83,6 +110,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "out", "chip_smoke")
 SLICE = ["--L", "50e-9", "--R", "5e-9"]
+PORE_KW = {"L": 50e-9, "R": 5e-9}   # the same pore as Pore3DConfig fields
 EDL_L_N = 50e-6                 # the 1D models' default system size
 KERNEL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # NVIDIA H100 SXM data sheet: device memory rate; f32 and f64 rates outside
@@ -263,6 +291,15 @@ def slice_adj(dev):
     return FemSpace.build(mesh, 9, quad_degree=2, device=dev).dev["adj"]
 
 
+def amg_coarse_adj(dev):
+    """The adjacency of the first AMG coarse level of the L=50 nm, R=5 nm
+    pore (the AMG plan of the Krylov paths)."""
+    from gmpnp_tpu_torch.solve.amg import AMGPlan
+
+    plan = AMGPlan.build(slice_adj("cpu").numpy(), 9)
+    return torch.as_tensor(plan.levels[0].coarse_adj, device=dev)
+
+
 def edl_adj(dev):
     """The adjacency of the 1D models' mesh at L_n=50 um."""
     from gmpnp_tpu_torch.fem.assembly import FemSpace
@@ -272,8 +309,8 @@ def edl_adj(dev):
     return FemSpace.build(mesh, 7, quad_degree=3, device=dev).dev["adj"]
 
 
-#: (record name, phase-3 label, dtype, phase-4 path whose launches it
-#: counts) of every record in the kernels line
+#: (record name, phase-3 label, dtype, phase-4 path whose launches at the
+#: record's shape it counts) of every record in the kernels line
 KERNEL_RECORDS = [
     ("ell_spmv_f32", "slice", torch.float32, "pore_3d carried"),
     ("ell_spmv_f64", "slice", torch.float64, "pore_3d iter"),
@@ -282,6 +319,10 @@ KERNEL_RECORDS = [
     ("ell_spmv_f64_rxn_diff_3d", "rxn_diff_3d", torch.float64,
      "rxn_diff_3d iter"),
     ("ell_spmv_f64_edl_1d", "edl_1d", torch.float64, "tridiag_mp_solve"),
+    ("ell_spmv_f32_amg_coarse", "amg_coarse", torch.float32,
+     "krylov gmres amg f32"),
+    ("ell_spmv_f64_amg_coarse", "amg_coarse", torch.float64,
+     "krylov gmres amg f64"),
 ]
 
 
@@ -342,6 +383,8 @@ def check_kernels(dev):
                                   ("rxn_diff_3d", pore, 7, both),
                                   ("edl_1d", edl_adj(dev), 7,
                                    (torch.float64,)),
+                                  ("amg_coarse", amg_coarse_adj(dev), 9,
+                                   both),
                                   ("edge", random_adj(1000, 7), 3, both)):
         for dtype in dtypes:
             flat, x = random_operands(rng, adj, f, dtype)
@@ -388,10 +431,12 @@ def timed_steps(model, steps_log):
     synchronize and records wall ms, iterations, host syncs and kernel
     launches."""
     from gmpnp_tpu_torch import ops, sync
+    from gmpnp_tpu_torch.io import checkpoint
 
     orig = model.run_transient
+    orig_ck = checkpoint.run_transient
 
-    def timed_run_transient(step, *args, **kw):
+    def timed_run_transient(step, *args, _orig=orig, **kw):
         def timed(*a):
             torch.cuda.synchronize()
             l0 = dict(ops.LAUNCHES)
@@ -408,13 +453,16 @@ def timed_steps(model, steps_log):
                 "launches": {str(k).replace("torch.", ""): v - l0[k]
                              for k, v in ops.LAUNCHES.items()}})
             return out
-        return orig(timed, *args, **kw)
+        return _orig(timed, *args, **kw)
 
     model.run_transient = timed_run_transient
+    checkpoint.run_transient = functools.partial(timed_run_transient,
+                                                 _orig=orig_ck)
     try:
         yield
     finally:
         model.run_transient = orig
+        checkpoint.run_transient = orig_ck
 
 
 def check_outputs(res, n_steps, n_vtk):
@@ -439,9 +487,14 @@ def check_outputs(res, n_steps, n_vtk):
 
 
 def _launches():
+    """Launches since the last _zero_launches: per dtype, and per shape
+    under "shapes" ("NxKxf dtype")."""
     from gmpnp_tpu_torch import ops
 
-    return {str(k).replace("torch.", ""): v for k, v in ops.LAUNCHES.items()}
+    out = {str(k).replace("torch.", ""): v for k, v in ops.LAUNCHES.items()}
+    out["shapes"] = {f"{N}x{K}x{f} {dt}": n for (N, K, f, dt), n
+                     in sorted(ops.SHAPE_LAUNCHES.items())}
+    return out
 
 
 def _zero_launches():
@@ -449,10 +502,12 @@ def _zero_launches():
 
     for k in ops.LAUNCHES:
         ops.LAUNCHES[k] = 0
+    ops.SHAPE_LAUNCHES.clear()
 
 
-def run_path(label, model_name, fn, n_steps, n_vtk):
-    """One path: launch counts set to 0 before it and read after it."""
+def run_path(label, model_name, fn, n_steps, n_vtk, full=False):
+    """One path: launch counts set to 0 before it and read after it.
+    Returns the launches, or with ``full`` (launches, result, steps)."""
     from gmpnp_tpu_torch import sync
 
     model = importlib.import_module(f"gmpnp_tpu_torch.models.{model_name}")
@@ -473,7 +528,7 @@ def run_path(label, model_name, fn, n_steps, n_vtk):
         print(f"  step {i}: " + json.dumps(st), flush=True)
     if len(steps) != n_steps or not all(st["converged"] for st in steps):
         raise AssertionError(f"{label}: steps {steps}")
-    return launches
+    return (launches, res, steps) if full else launches
 
 
 def mp_solve_path(dev_name):
@@ -567,6 +622,497 @@ def main_path(dev_name):
                          ("rxn_diff_3d iter", "float64")):
         if launches[label][dtype] <= 0:
             raise AssertionError(f"{label} launched no {dtype} kernel")
+    return launches
+
+
+PORE_NAMES = ["H", "OH", "HCO3", "CO32", "CO2", "CO", "H2", "cat", "p"]
+EDL_NAMES = ["H", "OH", "HCO3", "CO32", "CO2", "cat", "p"]
+
+
+def _states(res, names):
+    """(steps + 1, N, f) states from a CLI result's unscaled fields."""
+    return np.stack([res["unscaled"][nm] for nm in names], axis=-1)
+
+
+def _pore_cfg(**kw):
+    from gmpnp_tpu_torch.models import pore_3d
+
+    cfg = pore_3d.Pore3DConfig(**PORE_KW)
+    lin = {k: kw.pop(k) for k in list(kw) if k in (
+        "refresh", "slab_mode", "jac_dtype", "tol")}
+    cfg = dataclasses.replace(cfg, **kw)
+    return dataclasses.replace(cfg, linear=dataclasses.replace(
+        cfg.linear, **lin))
+
+
+def _last_step_residual(prog, hist, step_index):
+    """||r|| of the last recorded step at its final state (the Newton
+    acceptance quantity)."""
+    dev = prog.device
+    u_prev = torch.as_tensor(hist[-2], dtype=torch.float64, device=dev)
+    u = torch.as_tensor(hist[-1], dtype=torch.float64, device=dev)
+    theta = prog._theta_of_carry((u_prev, 0.0), step_index)
+    bc = prog._bc_of_theta(theta)
+    r = bc.apply_to_residual(
+        prog.space.residual(prog.form, u, u_prev, theta), u)
+    return float(r.norm())
+
+
+def checkpoint_paths(dev_name):
+    """Phase 4b: checkpoint/resume through the CLIs.  Pore (exact, then
+    carried): 2 steps checkpointed every step, then 4 steps from the same
+    directory (only steps 2-3 run), against an uninterrupted 4-step run.
+    EDL (exact, H_OHP controller on): 5 + 5 steps against 10."""
+    from gmpnp_tpu_torch.models import pore_3d
+    from gmpnp_tpu_torch.testing import rel_l2
+
+    launches = {}
+    pore_cli = importlib.import_module("gmpnp_tpu_torch.cli.pore_3d")
+    edl_cli = importlib.import_module("gmpnp_tpu_torch.cli.edl_1d")
+    prog = None
+    for refresh in ("iter", "carried"):
+        ck = os.path.join(OUT, "checkpoints", f"pore_3d_{refresh}")
+        res = {}
+        for tag, n, n_run, extra in (
+                ("uninterrupted", 4, 4, []),
+                ("first", 2, 2, ["--checkpoint_dir", ck,
+                                 "--checkpoint_every", "1"]),
+                ("resumed", 4, 2, ["--checkpoint_dir", ck,
+                                   "--checkpoint_every", "1"])):
+            argv = [*SLICE, "--linear_refresh", refresh, "--n_steps", str(n),
+                    "--out_root", os.path.join(OUT, "checkpoint_runs",
+                                               f"{refresh}_{tag}"),
+                    "--device", dev_name, *extra]
+            label = f"checkpoint pore_3d {refresh} {tag}"
+            launches[label], res[tag], _ = run_path(
+                label, "pore_3d", lambda: pore_cli.main(argv), n_run, 9,
+                full=True)
+        full = _states(res["uninterrupted"], PORE_NAMES)
+        resumed = _states(res["resumed"], PORE_NAMES)
+        if sorted(os.listdir(ck)) != ["1", "2", "3", "4"]:
+            raise AssertionError(f"checkpoints {os.listdir(ck)}")
+        dist = rel_l2(resumed[-1], full[-1])
+        line = (f"checkpoint pore_3d {refresh}: resumed run took steps 2-3 "
+                f"({resumed.shape[0] - 1} records), final state "
+                f"{dist!r} from the uninterrupted run")
+        if refresh == "iter":
+            print(line, flush=True)
+            if not dist <= 1e-12:
+                raise AssertionError(line)
+            exact_final = full[-1]
+        else:
+            if prog is None:
+                prog = pore_3d.build(_pore_cfg(), device=dev_name)
+            # every step converged (run_path checks it); the resume stops
+            # at another point inside the Newton tolerance, as far from
+            # the uninterrupted carried run as that run is from exact
+            print(f"{line}; {rel_l2(full[-1], exact_final)!r} between the "
+                  f"uninterrupted carried and exact runs; resumed step 3 "
+                  f"residual {_last_step_residual(prog, resumed, 3)!r} "
+                  f"(Newton atol {prog.config.newton.atol})", flush=True)
+
+    # what one checkpoint costs: the L50R5 state saved (copied to the
+    # host, written, moved into place) and read back onto the card
+    from gmpnp_tpu_torch.io.checkpoint import TransientCheckpointer
+    state = torch.as_tensor(full[-1], dtype=torch.float64, device=dev_name)
+    ckt = TransientCheckpointer(os.path.join(OUT, "checkpoints", "timing"))
+    save_ms = [_timed(lambda i=i: ckt.save(i, (state, 0.0)))[1]
+               for i in range(1, 6)]
+    load_ms = [_timed(lambda: ckt.latest(device=dev_name))[1]
+               for _ in range(5)]
+    print(f"checkpoint of the L50R5 state ({state.numel() * 8} bytes): save "
+          f"ms median {float(np.median(save_ms))!r} (of {save_ms}), load ms "
+          f"median {float(np.median(load_ms))!r}", flush=True)
+
+    ck = os.path.join(OUT, "checkpoints", "edl_1d")
+    res = {}
+    for tag, n, n_run, extra in (
+            ("uninterrupted", 10, 10, []),
+            ("first", 5, 5, ["--checkpoint_dir", ck,
+                             "--checkpoint_every", "5"]),
+            ("resumed", 10, 5, ["--checkpoint_dir", ck,
+                                "--checkpoint_every", "5"])):
+        argv = ["--dry_run", "Y", "--L_n", str(EDL_L_N), "--H_OHP", "1.1",
+                "--n_steps", str(n), "--out_root",
+                os.path.join(OUT, "checkpoint_runs", f"edl_{tag}"),
+                "--device", dev_name, *extra]
+        label = f"checkpoint edl_1d {tag}"
+        launches[label], res[tag], _ = run_path(
+            label, "edl_1d", lambda: edl_cli.main(argv), n_run, 0, full=True)
+    dist = rel_l2(_states(res["resumed"], EDL_NAMES)[-1],
+                  _states(res["uninterrupted"], EDL_NAMES)[-1])
+    cur = [res[tag]["metadata"]["current_H"]
+           for tag in ("resumed", "uninterrupted")]
+    line = (f"checkpoint edl_1d: resumed 5 + 5 steps, final state {dist!r} "
+            f"from the uninterrupted 10, proton current {cur[0]!r} vs "
+            f"{cur[1]!r}")
+    print(line, flush=True)
+    if not (dist <= 1e-12 and cur[0] == cur[1]):
+        raise AssertionError(line)
+    return launches
+
+
+def _sweep(label, fn, n_steps, n_lanes):
+    """One sweep: launch counts set to 0 before and read after; a line per
+    lane with its per-step ms, Newton iterations, host syncs and
+    launches."""
+    from gmpnp_tpu_torch import sync
+    from gmpnp_tpu_torch.parallel import sweep
+
+    steps = []
+    _zero_launches()
+    s0, t0 = sync.SYNCS, time.perf_counter()
+    with timed_steps(sweep, steps):
+        u, stats = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    print(f"path {label}: lanes={n_lanes} n_steps={n_steps} wall_s={wall!r} "
+          f"host_syncs={sync.SYNCS - s0} launches={launches}", flush=True)
+    if len(steps) != n_lanes * n_steps:
+        raise AssertionError(f"{label}: {len(steps)} step records")
+    for i in range(n_lanes):
+        lane = steps[i * n_steps:(i + 1) * n_steps]
+        print(f"  lane {i}: ms/step {[round(st['ms'], 1) for st in lane]} "
+              f"newton {[st['newton'] for st in lane]} host_syncs "
+              f"{sum(st['host_syncs'] for st in lane)} launches "
+              f"{[st['launches'] for st in lane]}", flush=True)
+    if not (np.all(stats.converged) and torch.isfinite(u).all()):
+        raise AssertionError(f"{label}: not converged or not finite")
+    return launches, u, stats
+
+
+def sweep_paths(dev_name):
+    """Phase 4c: voltage sweeps (pore carried at L50R5, EDL at L_n = 50 um)
+    and a voltage x cation sweep; each lane against the single-lane sweep
+    of its voltage (1e-12) and against the model's own run at that voltage
+    under the sweep's Newton settings (1e-5: another Dirichlet blend)."""
+    from gmpnp_tpu_torch.models import edl_1d, pore_3d
+    from gmpnp_tpu_torch.parallel import sweep
+    from gmpnp_tpu_torch.testing import rel_l2
+
+    launches = {}
+    cfg = _pore_cfg(refresh="carried")
+    volts, n = [-0.5, -1.0, -1.5], 3
+    info = {}
+    launches["sweep pore_3d"], u, _ = _sweep(
+        "sweep pore_3d", lambda: sweep.run_pore_voltage_sweep(
+            cfg, volts, n_steps=n, device=dev_name, info=info), n, len(volts))
+    if info != {"chunk": 0, "refresh": "carried"}:
+        raise AssertionError(f"pore sweep ran {info}")
+    for i, v in enumerate(volts):
+        u1, _ = sweep.run_pore_voltage_sweep(cfg, [v], n_steps=n,
+                                             device=dev_name)
+        c = dataclasses.replace(cfg, voltage_multiplier=v,
+                                newton=sweep._sweep_newton(cfg.newton))
+        _, _, st, up = pore_3d.build(c, device=dev_name).run(n_steps=n)
+        d1 = rel_l2(u[i, -1].cpu().numpy(), u1[0, -1].cpu().numpy())
+        d2 = rel_l2(u[i, -1].cpu().numpy(), up.cpu().numpy())
+        line = (f"sweep pore_3d lane {v}: {d1!r} from its single-lane sweep, "
+                f"{d2!r} from Pore3DProgram.run (DirichletBC)")
+        print(line, flush=True)
+        if not (d1 <= 1e-12 and d2 <= 1e-5 and np.all(st.converged)):
+            raise AssertionError(line)
+
+    ecfg = edl_1d.EDL1DConfig(L_n=EDL_L_N)
+    volts, n = [-0.5, -1.0, -2.0], 5
+    launches["sweep edl_1d"], u, _ = _sweep(
+        "sweep edl_1d", lambda: sweep.run_edl_voltage_sweep(
+            ecfg, volts, n_steps=n, device=dev_name), n, len(volts))
+    if launches["sweep edl_1d"]["float32"] or launches["sweep edl_1d"][
+            "float64"]:
+        raise AssertionError("the EDL sweep (all-f64 CR) launched a kernel")
+    for i, v in enumerate(volts):
+        u1, _ = sweep.run_edl_voltage_sweep(ecfg, [v], n_steps=n,
+                                            device=dev_name)
+        c = dataclasses.replace(ecfg, voltage_multiplier=v, backtracking=4,
+                                newton=sweep._sweep_newton(ecfg.newton))
+        _, h, st, _ = edl_1d.build(c, device=dev_name).run(n_steps=n)
+        d1 = rel_l2(u[i, -1].cpu().numpy(), u1[0, -1].cpu().numpy())
+        d2 = rel_l2(u[i, -1].cpu().numpy(), h[-1].cpu().numpy())
+        line = (f"sweep edl_1d lane {v}: {d1!r} from its single-lane sweep, "
+                f"{d2!r} from EDL1DProgram.run (DirichletBC)")
+        print(line, flush=True)
+        if not (d1 <= 1e-12 and d2 <= 1e-5 and np.all(st.converged)):
+            raise AssertionError(line)
+
+    steps = []
+    _zero_launches()
+    t0 = time.perf_counter()
+    with timed_steps(sweep, steps):
+        out = sweep.run_pore_voltage_cation_sweep(
+            cfg, [-0.5, -1.0], cations=("K", "Cs"), n_steps=2,
+            device=dev_name)
+    torch.cuda.synchronize()
+    launches["sweep pore_3d cations"] = _launches()
+    print(f"path sweep pore_3d cations K, Cs x lanes -0.5, -1.0 x 2 steps: "
+          f"wall_s={time.perf_counter() - t0!r} launches="
+          f"{launches['sweep pore_3d cations']}", flush=True)
+    for i, st in enumerate(steps):
+        print(f"  cation {('K', 'Cs')[i // 4]} lane {(i // 2) % 2} step "
+              f"{i % 2}: " + json.dumps(st), flush=True)
+    for cat, (u, st) in out.items():
+        if not (np.all(st.converged) and torch.isfinite(u).all()):
+            raise AssertionError(f"cation sweep {cat}")
+    return launches
+
+
+#: (label, kind, preconditioner, solve dtype, tol, maxiter) of the Krylov
+#: solves of phase 4d
+KRYLOV_SOLVES = [
+    ("bicgstab block_jacobi f64", "bicgstab", "block_jacobi", "f64", 1e-6,
+     20000),
+    ("gmres block_jacobi f32", "gmres", "block_jacobi", "f32", 1e-5, 3000),
+    ("gmres ssor f64", "gmres", "ssor", "f64", 1e-6, 3000),
+    ("gmres amg f64", "gmres", "amg", "f64", 1e-6, 3000),
+    ("gmres amg f32", "gmres", "amg", "f32", 1e-5, 3000),
+]
+
+
+def _cold_start_system(prog):
+    """The BC-applied Jacobian and residual at the pore's cold start (the
+    system ``--profile`` assembles)."""
+    u0 = prog.initial_state()
+    theta = prog._theta_of_carry((u0, 0.0), 0)
+    bc = prog._bc_of_theta(theta)
+    u = bc.project(u0)
+    ell = bc.apply_to_jacobian(
+        prog.space.jacobian(prog.form, u, u0, theta))
+    r = bc.apply_to_residual(
+        prog.space.residual(prog.form, u, u0, theta), u)
+    return ell, r
+
+
+def krylov_solve(ell, r, space, amg_plan, kind, precond, dtype, tol,
+                 maxiter):
+    """One Krylov solve as make_linear_solver runs it; returns the result,
+    the system solved (f32: equilibrated) and its true relative residual
+    recomputed in f64."""
+    from gmpnp_tpu_torch.fem.assembly import BlockELL
+    from gmpnp_tpu_torch.ops.ell_spmv import ell_spmv_reference
+    from gmpnp_tpu_torch.solve.amg import amg_preconditioner
+    from gmpnp_tpu_torch.solve.linear import (
+        bicgstab, block_jacobi_preconditioner, gmres,
+        multicolor_ssor_preconditioner)
+    from gmpnp_tpu_torch.solve.smallblock import block_inv
+
+    if dtype == "f32":
+        Dinv = block_inv(ell.diag_blocks())
+        ell = ell.scale_rows(Dinv)
+        ell = BlockELL(ell.adj, ell.flat.to(torch.float32), ell.diag_slot)
+        r = torch.einsum("nfg,ng->nf", Dinv, r).to(torch.float32)
+    if precond == "ssor":
+        pc = multicolor_ssor_preconditioner(ell, space.colors)
+    elif precond == "amg":
+        pc = amg_preconditioner(ell, amg_plan)
+    else:
+        pc = block_jacobi_preconditioner(ell)
+    if kind == "gmres":
+        res = gmres(ell.matvec, r, Minv=pc, tol=tol, restart=30,
+                    maxiter=maxiter)
+    else:
+        res = bicgstab(ell.matvec, r, Minv=pc, tol=tol, maxiter=maxiter)
+    b64 = r.to(torch.float64)
+    Ax = ell_spmv_reference(ell.flat.to(torch.float64), ell.adj,
+                            res.x.to(torch.float64))
+    true = float((b64 - Ax).norm() / b64.norm())
+    return res, true
+
+
+def krylov_paths(dev_name):
+    """Phase 4d: the Krylov fallbacks on the L50R5 cold-start Jacobian, each
+    solve's contract checked on its true residual; the same solves on the
+    (2, 10) pore's Jacobian on the card and on the CPU."""
+    from gmpnp_tpu_torch import sync
+    from gmpnp_tpu_torch.models import pore_3d
+    from gmpnp_tpu_torch.solve.amg import AMGPlan
+
+    launches = {}
+    prog = pore_3d.build(_pore_cfg(), device=dev_name)
+    space = prog.space
+    ell, r = _cold_start_system(prog)
+    plan = AMGPlan.build(np.asarray(space.adj), space.n_fields)
+    colors = np.asarray(space.colors)
+    print(f"krylov system: N={space.num_vertices} K={space.adj.shape[1]} "
+          f"f={space.n_fields}; AMG levels "
+          f"{[(lv.nagg, lv.coarse_adj.shape[1]) for lv in plan.levels]}, "
+          f"coarsest dense solve {plan.levels[-1].nagg * space.n_fields} "
+          f"dofs; SSOR {colors.max() + 1} colors, largest "
+          f"{np.bincount(colors).max()}", flush=True)
+    torch.cuda.synchronize()
+    for label, kind, precond, dtype, tol, maxiter in KRYLOV_SOLVES:
+        _zero_launches()
+        s0, t0 = sync.SYNCS, time.perf_counter()
+        res, true = krylov_solve(ell, r, space, plan, kind, precond, dtype,
+                                 tol, maxiter)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches[f"krylov {label}"] = _launches()
+        line = (f"path krylov {label}: iterations={res.iters} converged="
+                f"{res.converged} true_rel_residual={true!r} tol={tol} "
+                f"ms={ms!r} host_syncs={sync.SYNCS - s0} launches="
+                f"{launches[f'krylov {label}']}")
+        print(line, flush=True)
+        if res.converged and not true <= 1.5 * tol:
+            raise AssertionError(f"converged above 1.5 x tol: {line}")
+        if not res.converged and res.iters < maxiter and kind == "gmres":
+            raise AssertionError(f"GMRES stopped early unconverged: {line}")
+        if launches[f"krylov {label}"][
+                "float32" if dtype == "f32" else "float64"] <= 0:
+            raise AssertionError(f"no kernel launch: {line}")
+
+    small = {}
+    for dev in (dev_name, "cpu"):
+        p = pore_3d.build(_pore_cfg(mesh_resolution=(2, 10)), device=dev)
+        e, b = _cold_start_system(p)
+        pl = AMGPlan.build(np.asarray(p.space.adj), p.space.n_fields)
+        small[dev] = [krylov_solve(e, b, p.space, pl, *spec[1:])[0]
+                      for spec in KRYLOV_SOLVES]
+    for spec, rd, rc in zip(KRYLOV_SOLVES, small[dev_name], small["cpu"]):
+        line = (f"krylov (2,10) {spec[0]}: card {rd.iters} "
+                f"{rd.converged}, cpu {rc.iters} {rc.converged}")
+        print(line, flush=True)
+        if rd.converged != rc.converged or abs(rd.iters - rc.iters) > max(
+                1, rc.iters // 10):
+            raise AssertionError(line)
+    return launches
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def newton_mode_paths(dev_name):
+    """Phase 4e: one exact Newton step with BiCGStab against slab_direct;
+    slab_mode='cr' against Thomas; jac_dtype='f32'; refresh='auto' through
+    the CLI."""
+    from gmpnp_tpu_torch import sync
+    from gmpnp_tpu_torch.models import pore_3d
+    from gmpnp_tpu_torch.solve import slab
+    from gmpnp_tpu_torch.solve.timeloop import (
+        LinearConfig, make_implicit_step)
+    from gmpnp_tpu_torch.testing import rel_l2
+
+    launches = {}
+    # BiCGStab exact step (tests/test_slab.py's settings) against the
+    # slab_direct one: at L50R5 when one cold-start BiCGStab solve to 1e-10
+    # converges within 20,000 iterations (reported), and at that test's own
+    # (L=100 nm, R=10 nm, (2, 8)), where its bar is held
+    prog = pore_3d.build(_pore_cfg(), device=dev_name)
+    ell, r = _cold_start_system(prog)
+    probe, true = krylov_solve(ell, r, prog.space, None, "bicgstab",
+                               "block_jacobi", "f64", 1e-10, 20000)
+    print(f"bicgstab L50R5 cold-start solve to 1e-10: iterations="
+          f"{probe.iters} converged={probe.converged} true_rel_residual="
+          f"{true!r}", flush=True)
+    progs = [("L50R5", prog)] if probe.converged else []
+    progs.append(("test_slab", pore_3d.build(pore_3d.Pore3DConfig(
+        L=100e-9, R=10e-9, mesh_resolution=(2, 8)), device=dev_name)))
+    for where, prog in progs:
+        cfg = prog.config
+        theta = {"dt": prog.dt_scaled,
+                 "co2_s1": prog.eq_conc["CO2"] / prog.bulk_conc["CO2"]}
+        u0 = prog.initial_state()
+        out = {}
+        for kind, lin in (("bicgstab", LinearConfig(
+                kind="bicgstab", tol=1e-10, maxiter=20000)),
+                          ("slab_direct", LinearConfig(kind="slab_direct",
+                                                       tol=1e-10))):
+            step = make_implicit_step(prog.space, prog.form, cfg.newton, lin,
+                                      bc_of_theta=prog._bc_of_theta)
+            _zero_launches()
+            s0 = sync.SYNCS
+            (u, st), ms = _timed(lambda: step(u0, theta))
+            label = f"newton step {kind} {where}"
+            launches[label] = _launches()
+            out[kind] = (u, st)
+            print(f"path {label} (N={prog.space.num_vertices}): newton="
+                  f"{st.newton_iters} linear={st.linear_iters} converged="
+                  f"{st.converged} ms={ms!r} host_syncs={sync.SYNCS - s0} "
+                  f"launches={launches[label]}", flush=True)
+        (u_k, st_k), (u_d, st_d) = out["bicgstab"], out["slab_direct"]
+        err = float(((u_d - u_k).abs() - 2e-6 * u_k.abs()).max())
+        ok = (st_k.converged and st_d.converged and err <= 2e-8
+              and st_d.newton_iters <= st_k.newton_iters)
+        print(f"newton step bicgstab vs slab_direct {where}: max(|du| - "
+              f"2e-6|u|) = {err!r} (bar 2e-8), rel_l2 "
+              f"{rel_l2(u_k.cpu().numpy(), u_d.cpu().numpy())!r}: "
+              f"{'held' if ok else 'missed'}", flush=True)
+        if where == "test_slab" and not ok:
+            raise AssertionError("bicgstab step vs slab_direct step")
+
+    # slab_mode='cr' against Thomas, and f32 element Jacobians, 2 exact
+    # steps each at L50R5; CR against Thomas at the model's linear tol 1e-6
+    # (the two f32 factorizations precondition GMRES differently, so the
+    # runs stop at different points inside the Newton tolerance: printed)
+    # and at linear tol 1e-10, where the 1e-6 bar is held
+    prog = pore_3d.build(_pore_cfg(), device=dev_name)
+    ell, _ = _cold_start_system(prog)
+    plan = slab.SlabPlan.build(
+        np.asarray(prog.space.adj), np.asarray(prog.space.points)[:, -1],
+        prog.space.n_fields, np.asarray(prog.space.diag_slot))
+    runs = {}
+    for label, kw in (("thomas", {}), ("cr", {"slab_mode": "cr"}),
+                      ("jac f32", {"jac_dtype": "f32"}),
+                      ("thomas tol 1e-10", {"tol": 1e-10}),
+                      ("cr tol 1e-10", {"slab_mode": "cr", "tol": 1e-10})):
+        p = pore_3d.build(_pore_cfg(**kw), device=dev_name)
+        steps = []
+        _zero_launches()
+        with timed_steps(pore_3d, steps):
+            _, _, st, u = p.run(n_steps=2)
+        launches[f"exact {label}"] = _launches()
+        runs[label] = (st, u)
+        print(f"path exact {label} 2 steps: newton "
+              f"{np.asarray(st.newton_iters).tolist()} launches "
+              f"{launches[f'exact {label}']}", flush=True)
+        for i, rec in enumerate(steps):
+            print(f"  step {i}: " + json.dumps(rec), flush=True)
+        if not np.all(st.converged):
+            raise AssertionError(f"exact {label} not converged")
+    slab.full_f32_precision()
+    factor_ms = {}
+    for mode in ("thomas", "cr"):
+        slab.slab_prepare(ell, plan, mode=mode)
+        factor_ms[mode] = float(np.median(
+            [_timed(lambda: slab.slab_prepare(ell, plan, mode=mode))[1]
+             for _ in range(3)]))
+    dist = {}
+    for tag in ("", " tol 1e-10"):
+        (st_t, u_t), (st_c, u_c) = runs[f"thomas{tag}"], runs[f"cr{tag}"]
+        dist[tag] = rel_l2(u_c.cpu().numpy(), u_t.cpu().numpy())
+        if not np.array_equal(st_c.newton_iters, st_t.newton_iters):
+            raise AssertionError(f"cr vs thomas{tag}: Newton iterations")
+    line = (f"slab_mode cr vs thomas: newton "
+            f"{runs['cr'][0].newton_iters.tolist()} vs "
+            f"{runs['thomas'][0].newton_iters.tolist()}, states "
+            f"{dist['']!r} apart at linear tol 1e-6 and "
+            f"{dist[' tol 1e-10']!r} at 1e-10 (bar 1e-6); slab_prepare ms "
+            f"thomas {factor_ms['thomas']!r} cr {factor_ms['cr']!r}")
+    print(line, flush=True)
+    if not dist[" tol 1e-10"] <= 1e-6:
+        raise AssertionError(line)
+    st_t, u_t = runs["thomas"]
+    st_f, u_f = runs["jac f32"]
+    print(f"jac_dtype f32: newton {st_f.newton_iters.tolist()} vs f64 "
+          f"{st_t.newton_iters.tolist()}, states "
+          f"{rel_l2(u_f.cpu().numpy(), u_t.cpu().numpy())!r} apart",
+          flush=True)
+
+    cli = importlib.import_module("gmpnp_tpu_torch.cli.pore_3d")
+    argv = [*SLICE, "--linear_refresh", "auto", "--n_steps", "3",
+            "--out_root", os.path.join(OUT, "pore_3d", "auto"),
+            "--device", dev_name]
+    launches["pore_3d auto"], res, _ = run_path(
+        "pore_3d auto", "pore_3d", lambda: cli.main(argv), 3, 9, full=True)
+    cal = res["metadata"].get("refresh_calibration")
+    print(f"refresh auto: {cal}", flush=True)
+    if not cal or cal["mode"] not in ("carried", "iter"):
+        raise AssertionError(f"refresh_calibration {cal}")
     return launches
 
 
@@ -799,15 +1345,24 @@ def main(argv=None) -> int:
     shutil.rmtree(OUT, ignore_errors=True)
     records = check_kernels(dev)
     launches = main_path("cuda")
+    for phase in (checkpoint_paths, sweep_paths, krylov_paths,
+                  newton_mode_paths):
+        launches.update(phase("cuda"))
     checks("cuda")
 
-    kernels = [
-        {"name": name, "route": "cuda",
-         "source": "gmpnp_tpu_torch/csrc/ell_spmv.cu",
-         "replaces": "gmpnp_tpu/ops/ell_spmv.py:70", "path": path,
-         "launches": launches[path][str(dtype).replace("torch.", "")],
-         **records[label, dtype]}
-        for name, label, dtype, path in KERNEL_RECORDS]
+    kernels = []
+    for name, label, dtype, path in KERNEL_RECORDS:
+        rec = records[label, dtype]
+        N, K, f = rec["shape"]
+        n = launches[path]["shapes"].get(
+            f"{N}x{K}x{f} {str(dtype).replace('torch.', '')}", 0)
+        if n <= 0:
+            raise AssertionError(f"{name}: path {path} launched no kernel at "
+                                 f"{rec['shape']}")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "gmpnp_tpu_torch/csrc/ell_spmv.cu",
+                        "replaces": "gmpnp_tpu/ops/ell_spmv.py:70",
+                        "path": path, "launches": n, **rec})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

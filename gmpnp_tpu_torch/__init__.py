@@ -19,11 +19,15 @@ Layout
 - ``mesh``   : meshes, generators, marking (numpy; shared native library)
 - ``fem``    : P1 assembly into block-ELL (``torch.func`` Jacobians), BCs
 - ``ops``    : hand-written CUDA kernels with their plain PyTorch versions
-- ``solve``  : small-block inverses, 1D block-tridiagonal solvers, GMRES,
-               z-slab direct solver, Newton, time loop
+- ``solve``  : small-block inverses, 1D block-tridiagonal solvers, GMRES
+               and BiCGStab with block-Jacobi / SSOR / AMG preconditioners,
+               z-slab direct solver (Thomas and cyclic reduction), Newton,
+               time loop
 - ``models`` : the 3D pore (GMPNP and reaction-diffusion), the 1D EDL and
                the 1D reaction-diffusion models
-- ``io``     : npz/metadata/VTK writers
+- ``parallel``: voltage and cation sweeps
+- ``io``     : npz/metadata/VTK writers, checkpoint/resume
+- ``utils``  : step logger, phase timer, ``torch.profiler`` traces
 - ``cli``    : command-line entry points
 """
 

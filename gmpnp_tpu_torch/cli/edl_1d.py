@@ -49,7 +49,8 @@ def build_parser():
                         "history to ~1000 snapshots (pass 1 to record "
                         "every step like the reference)")
     p.add_argument("--checkpoint_dir", type=str, default=None,
-                   help="checkpoint/resume (not yet ported: raises)")
+                   help="chunked checkpointing; resumes from the latest "
+                        "step in this directory if present")
     p.add_argument("--checkpoint_every", type=int, default=1000)
     p.add_argument("--dt_retries", type=int, default=None,
                    help="divergence recovery: retry a non-converged step "

@@ -41,7 +41,8 @@ def add_common_pore_args(p):
                         "history to ~1000 snapshots (pass 1 to record "
                         "every step like the reference)")
     p.add_argument("--checkpoint_dir", type=str, default=None,
-                   help="checkpoint/resume (not yet ported: raises)")
+                   help="chunked checkpointing; resumes from the latest "
+                        "step in this directory if present")
     p.add_argument("--checkpoint_every", type=int, default=100)
     p.add_argument("--dt_retries", type=int, default=None,
                    help="divergence recovery: retry a non-converged step "
@@ -75,8 +76,9 @@ def add_common_pore_args(p):
                         "Newton, re-factor every iterate (reference-parity "
                         "default); 'step' = once per time step; 'carried' = "
                         "carry across steps with lazy refresh (chord Newton, "
-                        "solve.timeloop.make_carried_step); 'auto' = not "
-                        "yet ported (raises)")
+                        "solve.timeloop.make_carried_step); 'auto' = time "
+                        "both on a warm window at startup and pick the "
+                        "faster (solve.timeloop.calibrate_refresh)")
 
 
 def build_parser():

@@ -9,7 +9,7 @@ precomputed host-side in numpy (the same tables as ``gmpnp_tpu.fem``).
 from gmpnp_tpu_torch.fem.elements import QuadratureRule, simplex_quadrature
 from gmpnp_tpu_torch.fem.forms import WeakForm
 from gmpnp_tpu_torch.fem.assembly import FemSpace, BlockELL
-from gmpnp_tpu_torch.fem.dirichlet import DirichletBC
+from gmpnp_tpu_torch.fem.dirichlet import ArithDirichletBC, DirichletBC
 
 __all__ = [
     "QuadratureRule",
@@ -18,4 +18,5 @@ __all__ = [
     "FemSpace",
     "BlockELL",
     "DirichletBC",
+    "ArithDirichletBC",
 ]

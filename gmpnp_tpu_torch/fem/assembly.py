@@ -15,12 +15,15 @@ one pass of the hand-written kernel in ``ops.ell_spmv``.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
 from torch.func import jacfwd, vmap
+from torch.overrides import TorchFunctionMode
+from torch.utils._pytree import tree_map
 
 from gmpnp_tpu_torch.fem.elements import (
     physical_gradients,
@@ -182,6 +185,25 @@ def _node_slot(nodes: np.ndarray, adj: np.ndarray) -> np.ndarray:
     return _slot_table(nodes, adj)
 
 
+class _EvaluateIn(TorchFunctionMode):
+    """Runs every torch call with its float64 tensor arguments (and a
+    ``dtype=torch.float64`` keyword) cast to ``dtype``: a form's float64
+    closure constants then take part in the arithmetic in ``dtype``, as
+    the reference's forms do when traced with x64 disabled."""
+
+    def __init__(self, dtype):
+        super().__init__()
+        self.dtype = dtype
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        def cast(a):
+            if isinstance(a, torch.Tensor) and a.dtype == torch.float64:
+                return a.to(self.dtype)
+            return self.dtype if a is torch.float64 else a
+
+        return func(*tree_map(cast, args), **tree_map(cast, kwargs or {}))
+
+
 def _device_tables(space: "FemSpace") -> dict:
     """Device copies of the tables the per-step work reads."""
     dev = torch.device(space.device)
@@ -237,6 +259,7 @@ class FemSpace:
     slot: np.ndarray            # (C, nv, nv)
     facet_tabs: tuple           # ((marker, dict), ...) static ordering
     points: np.ndarray          # (N, dim) vertex coords
+    colors: np.ndarray = None   # (N,) greedy vertex coloring (host-side)
     # sorted-segment tables (host-side int32) for scatter-free assembly:
     # volume residual reduces (C*nv, f) onto vertices, volume Jacobian
     # reduces (C*nv*nv, f*f) onto (vertex, adjacency-slot) block ids
@@ -265,6 +288,17 @@ class FemSpace:
         adj, _ = vertex_adjacency(mesh.cells, mesh.num_vertices)
         diag_slot = np.argmax(adj == np.arange(len(adj))[:, None], axis=1)
         slot = _slot_table(mesh.cells, adj)
+        colors = None
+        try:
+            from gmpnp_tpu_torch import native
+            csr = native.vertex_adjacency_csr(mesh.cells, mesh.num_vertices)
+            if csr is not None:
+                colors = native.greedy_color(*csr, mesh.num_vertices)
+        except Exception:
+            colors = None
+        if colors is None:
+            from gmpnp_tpu_torch.solve.linear import greedy_vertex_coloring
+            colors = greedy_vertex_coloring(adj)
 
         K = adj.shape[1]
         ftabs = []
@@ -302,6 +336,7 @@ class FemSpace:
             slot=np.asarray(slot),
             facet_tabs=tuple(ftabs),
             points=np.asarray(mesh.points),
+            colors=colors,
             res_tables=res_tables,
             jac_tables=jac_tables,
             device=str(torch.device(device)),
@@ -382,13 +417,20 @@ class FemSpace:
         return r
 
     def jacobian(self, form: WeakForm, u, u_prev, theta,
-                 aux=None) -> BlockELL:
+                 aux=None, dtype=None) -> BlockELL:
         """Assembled Jacobian dF/du as BlockELL (aux never differentiated).
 
         Element Jacobians come from ``jacfwd`` vmapped over chunks of
         ``jac_chunk`` elements, flattened to (C, nv*nv*f*f) in (a, b, r, c)
         order, and reduced onto (vertex, adjacency-slot) blocks by the
-        sorted-segment sum in u's dtype."""
+        sorted-segment sum in u's dtype.
+
+        ``dtype=torch.float32`` evaluates the element Jacobians in f32
+        (inexact Newton; the reference's ``jac_dtype='f32'``): their inputs
+        and the form's float64 constants are cast to f32 (``_EvaluateIn``).
+        The reduction and the facet Jacobians stay in u's dtype, as in the
+        reference: the cumsum prefixes of the reduction would lose ~5
+        digits in f32."""
         d = self.dev
         f = self.n_fields
         N = self.num_vertices
@@ -405,13 +447,18 @@ class FemSpace:
         args = [u[cells], u_prev[cells], d["gradN"], d["vols"], d["xq"]]
         if form.n_aux:
             args.append(aux[cells])
+        ctx = contextlib.nullcontext()
+        if dtype is not None and dtype != u.dtype:
+            args = [a.to(dtype) for a in args]
+            ctx = _EvaluateIn(dtype)
         kernel = vmap(local_jac)
         chunk = max(1, min(self.jac_chunk, C))
-        J_e = torch.cat([kernel(*(a[i:i + chunk] for a in args))
-                         for i in range(0, C, chunk)], dim=0)
+        with ctx:
+            J_e = torch.cat([kernel(*(a[i:i + chunk] for a in args))
+                             for i in range(0, C, chunk)], dim=0)
 
         blocks = _segment_reduce(
-            J_e.reshape(C * nv * nv, f * f), *d["jac_tables"])
+            J_e.to(u.dtype).reshape(C * nv * nv, f * f), *d["jac_tables"])
 
         for marker, _ in self.facet_tabs:
             fn = form.boundary.get(marker)

@@ -50,6 +50,11 @@ class DirichletBC(NamedTuple):
         vals[verts, fld] = value
         return DirichletBC(self.mask, vals)
 
+    def arith(self) -> "ArithDirichletBC":
+        """Arithmetic-blend view of this BC (see ArithDirichletBC)."""
+        return ArithDirichletBC(self.mask, self.mask.to(torch.float64),
+                                self.values)
+
     def apply_to_residual(self, r: torch.Tensor,
                           u: torch.Tensor) -> torch.Tensor:
         return torch.where(self.mask, u - self.values, r)
@@ -74,3 +79,36 @@ class DirichletBC(NamedTuple):
     def project(self, u: torch.Tensor) -> torch.Tensor:
         """Force constrained dofs to their values."""
         return torch.where(self.mask, self.values, u)
+
+
+class ArithDirichletBC(NamedTuple):
+    """Dirichlet BC applied by arithmetic blends with a 0/1 mask, the form
+    the reference's sweeps use for their per-lane Dirichlet values.
+
+    Same semantics as :class:`DirichletBC` (the mask is 0/1, so the blends
+    are exact).  ``mask`` (bool) is kept for the Jacobian row rewrite,
+    which depends only on the sparsity, never on the values.
+    """
+
+    mask: torch.Tensor    # (N, fields) bool
+    maskf: torch.Tensor   # (N, fields) f64 0/1
+    values: torch.Tensor  # (N, fields)
+
+    def set_value_arith(self, verts, fld: int, value) -> "ArithDirichletBC":
+        """Blend a scalar (a float or a 0-d tensor) onto a vertex set by
+        multiply-add with a one-hot mask."""
+        onehot = torch.zeros_like(self.maskf)
+        onehot[torch.as_tensor(np.asarray(verts), dtype=torch.int64,
+                               device=onehot.device), fld] = 1.0
+        vals = self.values * (1.0 - onehot) + value * onehot
+        return ArithDirichletBC(self.mask, self.maskf, vals)
+
+    def apply_to_residual(self, r: torch.Tensor,
+                          u: torch.Tensor) -> torch.Tensor:
+        return r + self.maskf * ((u - self.values) - r)
+
+    def apply_to_jacobian(self, J: BlockELL) -> BlockELL:
+        return DirichletBC(self.mask, self.values).apply_to_jacobian(J)
+
+    def project(self, u: torch.Tensor) -> torch.Tensor:
+        return u + self.maskf * (self.values - u)

@@ -22,7 +22,8 @@ Scalings (ref :173-205): x by L_n, concentrations by C0_i, potential by the
 thermal voltage, time term (u-u_n)/(del_t * L_D) with L_D = L_debye/L_n and
 del_t = dt_phys/time_constant, time_constant = L_debye*L_n/D_CO32.
 
-``checkpoint_dir`` is still to be ported (ROADMAP queue 1) and raises.
+``checkpoint_dir`` checkpoints the run in chunks and resumes it
+(io.checkpoint), the controller's proton-current fraction included.
 """
 
 from __future__ import annotations
@@ -39,6 +40,10 @@ from gmpnp_tpu_torch.constants import ParameterSet
 from gmpnp_tpu_torch.fem import DirichletBC, FemSpace, WeakForm
 from gmpnp_tpu_torch.fem.projection import project_cellwise, project_gradient
 from gmpnp_tpu_torch.io import make_run_dir, save_metadata, save_npz
+from gmpnp_tpu_torch.io.checkpoint import (
+    TransientCheckpointer,
+    run_transient_checkpointed,
+)
 from gmpnp_tpu_torch.mesh.core import cell_measures
 from gmpnp_tpu_torch.models import base
 from gmpnp_tpu_torch.solve.timeloop import (
@@ -199,12 +204,11 @@ class EDL1DProgram:
             checkpoint_every: int = 1000):
         """Returns (u0, u_hist, stats, final proton-current fraction);
         record_stride bounds the recorded history (the full run is 20,000
-        steps, ref :270-290)."""
+        steps, ref :270-290); checkpoint_dir enables chunked checkpointing
+        with automatic resume (io.checkpoint), the fraction carried in the
+        checkpoint.  A run resumed at its final step returns the
+        checkpointed state as the single history record and stats None."""
         cfg = self.config
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint/resume is still to be ported (ROADMAP queue 1 "
-                "item 12)")
         n = self.tot_num_steps if n_steps is None else n_steps
         retries = cfg.dt_retries
         if retries is None:
@@ -236,6 +240,23 @@ class EDL1DProgram:
         u0 = self.initial_state()
         chf0 = 0.001 if cfg.H_OHP is not None else 0.0
         carry0 = (u0, chf0)
+        if checkpoint_dir:
+            state_init = None
+            if carried:
+                state_init = lambda carry, i: prep_init(
+                    carry[0], self._theta_of_carry(carry, i))
+            ckpt = TransientCheckpointer(checkpoint_dir, cfg=cfg)
+            (u_final, chf), ys = run_transient_checkpointed(
+                step, carry0, n, ckpt, chunk=checkpoint_every,
+                theta_of_carry=self._theta_of_carry,
+                update_carry=self._update_carry,
+                step_state_init=state_init)
+            if ys is None:
+                # resumed at the final step: the checkpointed final state is
+                # the single history record
+                return u0, u_final[None], None, float(chf)
+            u_hist, stats = ys
+            return u0, u_hist, stats, float(chf)
         state0 = (prep_init(u0, self._theta_of_carry(carry0, 0))
                   if carried else None)
         final, (u_hist, stats) = run_transient(
@@ -408,7 +429,7 @@ def scale_back(tau, C, species, initial_conc, diff_coeff, L_n, L_debye):
 
 def run(cfg: EDL1DConfig, out_root: Optional[str] = None,
         write: bool = True, n_steps: Optional[int] = None,
-        record_stride: Optional[int] = None,
+        verbose: bool = False, record_stride: Optional[int] = None,
         checkpoint_dir: Optional[str] = None,
         checkpoint_every: int = 1000, device="cuda"):
     """Full reference-parity run on ``device`` with npz/metadata outputs
@@ -416,14 +437,21 @@ def run(cfg: EDL1DConfig, out_root: Optional[str] = None,
 
     record_stride=None (default) bounds the recorded history to ~1000
     snapshots for long runs (base.auto_record_stride); pass 1 for the
-    reference's record-every-step behavior."""
+    reference's record-every-step behavior.  A checkpointed run records
+    every step.  verbose prints per-step lines (utils.StepLogger)."""
     prog = build(cfg, device=device)
     if record_stride is None:
         record_stride = base.auto_record_stride(
             n_steps if n_steps is not None else prog.tot_num_steps)
+    if checkpoint_dir is not None:
+        # the checkpointed transient records every step inside its chunks
+        record_stride = 1
     u0, u_hist, stats, current_H_frac = prog.run(
         n_steps=n_steps, record_stride=record_stride,
         checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
+    if verbose and stats is not None:
+        from gmpnp_tpu_torch.utils import StepLogger
+        StepLogger(every=max(1, u_hist.shape[0] // 50)).log_run(stats)
     n = u_hist.shape[0]
     sch = prog.schedule
 
@@ -522,11 +550,15 @@ def run(cfg: EDL1DConfig, out_root: Optional[str] = None,
         "pH_overpotential": pH_overpotential,
         "CO2_overpotential": CO2_overpotential,
         # framework extras
-        "newton_iters_total": int(np.asarray(stats.newton_iters).sum()),
-        "all_steps_converged": bool(np.asarray(stats.converged).all()),
-        "resumed_complete": False,
+        # (stats is None when a checkpointed run resumed at completion)
+        "newton_iters_total": (int(np.asarray(stats.newton_iters).sum())
+                               if stats is not None else 0),
+        "all_steps_converged": (bool(np.asarray(stats.converged).all())
+                                if stats is not None else True),
+        "resumed_complete": stats is None,
         # divergence-recovery record: steps that needed a dt cut
-        "dt_cut_steps": int((np.asarray(stats.dt_scale) < 1.0).sum()),
+        "dt_cut_steps": (int((np.asarray(stats.dt_scale) < 1.0).sum())
+                         if stats is not None else 0),
     }
 
     result = {

@@ -19,12 +19,12 @@ only the Dirichlet BCs drive the solve; ``faithful=False`` includes the wall
 and exit fluxes (see the reference module's docstring).  The rxn-diff
 physics always includes them.
 
-Still to be ported (ROADMAP queue 1): checkpoint/resume, the sharded run
-and ``refresh='auto'``.
+Still to be ported (ROADMAP queue 1): the sharded run (``shard``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
@@ -38,6 +38,10 @@ from gmpnp_tpu_torch.constants import ParameterSet
 from gmpnp_tpu_torch.fem import DirichletBC, FemSpace, WeakForm
 from gmpnp_tpu_torch.fem.projection import project_cellwise, project_gradient
 from gmpnp_tpu_torch.io import make_run_dir, save_metadata, save_npz
+from gmpnp_tpu_torch.io.checkpoint import (
+    TransientCheckpointer,
+    run_transient_checkpointed,
+)
 from gmpnp_tpu_torch.io.vtk import write_pvd, write_vtu
 from gmpnp_tpu_torch.mesh import (
     cylinder_mesh,
@@ -48,6 +52,7 @@ from gmpnp_tpu_torch.models import base
 from gmpnp_tpu_torch.solve.timeloop import (
     LinearConfig,
     NewtonConfig,
+    calibrate_refresh,
     make_carried_step,
     make_implicit_step,
     make_recovering_carried_step,
@@ -226,20 +231,26 @@ class Pore3DProgram:
             checkpoint_every: int = 100):
         """Run the transient; returns (u0, u_hist, stats, u_final).
 
-        record_stride bounds the recorded history to every k-th step."""
+        record_stride bounds the recorded history to every k-th step;
+        checkpoint_dir enables chunked checkpointing with automatic resume
+        from the latest step (io.checkpoint).  A run resumed at its final
+        step returns the checkpointed state as the single history record
+        and stats None.  ``refresh='auto'`` is resolved first by timing
+        both modes (``calibrate_refresh``); the choice is kept in
+        ``self.refresh_calibration``."""
         cfg = self.config
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint/resume is still to be ported (ROADMAP queue 1 "
-                "item 12)")
-        if cfg.linear.refresh == "auto":
-            raise NotImplementedError(
-                "refresh='auto' (timeloop.calibrate_refresh) is still to be "
-                "ported (ROADMAP queue 1); pick 'iter' or 'carried'")
         n = self.num_steps if n_steps is None else n_steps
         retries = cfg.dt_retries
         if retries is None:
             retries = 3 if n_steps is None else 0
+        if cfg.linear.refresh == "auto":
+            mode, times = calibrate_refresh(
+                self.space, self.form, cfg.newton, cfg.linear,
+                self._bc_of_theta, self.initial_state(),
+                self._theta_of_carry)
+            self.refresh_calibration = dict(times, mode=mode)
+            cfg = dataclasses.replace(cfg, linear=dataclasses.replace(
+                cfg.linear, refresh=mode))
         carried = (cfg.linear.kind == "slab_direct"
                    and cfg.linear.refresh == "carried")
         if carried:
@@ -260,9 +271,26 @@ class Pore3DProgram:
                 self.space, self.form, cfg.newton, cfg.linear,
                 bc_of_theta=self._bc_of_theta)
         u0 = self.initial_state()
+        carry0 = (u0, 0.0)
+        if checkpoint_dir:
+            state_init = None
+            if carried:
+                state_init = lambda carry, i: prep_init(
+                    carry[0], self._theta_of_carry(carry, i))
+            ckpt = TransientCheckpointer(checkpoint_dir, cfg=cfg)
+            (u_final, _), ys = run_transient_checkpointed(
+                step, carry0, n, ckpt, chunk=checkpoint_every,
+                theta_of_carry=self._theta_of_carry,
+                step_state_init=state_init)
+            if ys is None:
+                # resumed at the final step: no steps ran; the checkpointed
+                # final state is the single history record, so the writers
+                # still produce the finished run's outputs
+                return u0, u_final[None], None, u_final
+            u_hist, stats = ys
+            return u0, u_hist, stats, u_final
         record = None if record_full else (
             lambda u, stats: (u[self._s1[:1]], stats))
-        carry0 = (u0, 0.0)
         state0 = (prep_init(u0, self._theta_of_carry(carry0, 0))
                   if carried else None)
         final, ys = run_transient(
@@ -463,7 +491,7 @@ def scale_conc_time(C, grad_c, bulk, tau, D_eff, L):
 
 def run(cfg: Pore3DConfig, out_root: Optional[str] = None,
         write: bool = True, n_steps: Optional[int] = None,
-        write_vtk: bool = True,
+        write_vtk: bool = True, verbose: bool = False,
         record_stride: Optional[int] = None,
         checkpoint_dir: Optional[str] = None,
         checkpoint_every: int = 100,
@@ -474,7 +502,8 @@ def run(cfg: Pore3DConfig, out_root: Optional[str] = None,
     on ``device``.
 
     record_stride=None (default) bounds the recorded history to ~1000
-    snapshots for long runs (base.auto_record_stride)."""
+    snapshots for long runs (base.auto_record_stride); a checkpointed run
+    records every step.  verbose prints per-step lines (utils.StepLogger)."""
     if shard is not None:
         raise NotImplementedError(
             "shard: z-slab domain decomposition is still to be ported "
@@ -483,10 +512,18 @@ def run(cfg: Pore3DConfig, out_root: Optional[str] = None,
     if record_stride is None:
         record_stride = base.auto_record_stride(
             n_steps if n_steps is not None else prog.num_steps)
+    if checkpoint_dir is not None:
+        # the checkpointed transient records every step inside its chunks;
+        # keep the time-axis bookkeeping consistent with the recorded rows
+        record_stride = 1
     u0, u_hist, stats, u_final = prog.run(
         n_steps=n_steps, record_stride=record_stride,
         checkpoint_dir=checkpoint_dir,
         checkpoint_every=checkpoint_every)
+    if verbose and stats is not None:
+        from gmpnp_tpu_torch.utils import StepLogger
+        StepLogger(every=max(1, u_hist.shape[0] // 50)).log_run(
+            stats, dt_phys=cfg.time_step)
     n = u_hist.shape[0]
     ns = len(cfg.species)
     idx = prog.idx
@@ -544,7 +581,10 @@ def run(cfg: Pore3DConfig, out_root: Optional[str] = None,
         grads_scaled[nm] = gsc
 
     CO2_min = float(hist[-1, :, idx["CO2"]].min())
-    dt_scale = np.asarray(stats.dt_scale)
+    # stats is None when a checkpointed run resumed at completion: no step
+    # ran in this call
+    dt_scale = (np.asarray(stats.dt_scale) if stats is not None
+                else np.ones(0))
     metadata = {
         "concentration_elec": cfg.concentration_elec,
         "cation": cfg.cation,
@@ -566,10 +606,13 @@ def run(cfg: Pore3DConfig, out_root: Optional[str] = None,
         "current_planar": prog.current_planar,
         "CO2_min": CO2_min,
         # framework extras
-        "newton_iters_total": int(np.asarray(stats.newton_iters).sum()),
-        "linear_iters_total": int(np.asarray(stats.linear_iters).sum()),
-        "all_steps_converged": bool(np.asarray(stats.converged).all()),
-        "resumed_complete": False,
+        "newton_iters_total": (int(np.asarray(stats.newton_iters).sum())
+                               if stats is not None else 0),
+        "linear_iters_total": (int(np.asarray(stats.linear_iters).sum())
+                               if stats is not None else 0),
+        "all_steps_converged": (bool(np.asarray(stats.converged).all())
+                                if stats is not None else True),
+        "resumed_complete": stats is None,
         "dt_cut_steps": int((dt_scale < 1.0).sum()),
         "dt_first_scale": cfg.dt_first_scale,
         "dt_first_steps": cfg.dt_first_steps,
@@ -579,6 +622,9 @@ def run(cfg: Pore3DConfig, out_root: Optional[str] = None,
     }
     if gmpnp:
         metadata["voltage_multiplier"] = cfg.voltage_multiplier
+    if getattr(prog, "refresh_calibration", None):
+        # refresh='auto': the mode the timed calibration chose
+        metadata["refresh_calibration"] = prog.refresh_calibration
 
     result = {
         "unscaled": unscaled,

@@ -199,11 +199,16 @@ def scale_back(tau, C, species, initial_conc, diff_coeff, L_n):
 
 def run(cfg: RxnDiff1DConfig, out_root: Optional[str] = None,
         write: bool = True, n_steps: Optional[int] = None,
-        device="cuda"):
+        verbose: bool = False, device="cuda"):
     """Full reference-parity run on ``device``: transient solve +
-    npz/metadata outputs (key sets match 1D/rxn_diff_planar.py:367-492)."""
+    npz/metadata outputs (key sets match 1D/rxn_diff_planar.py:367-492);
+    verbose prints per-step lines (utils.StepLogger)."""
     prog = build(cfg, device=device)
     u0, u_hist, stats = prog.run(n_steps=n_steps)
+    if verbose:
+        from gmpnp_tpu_torch.utils import StepLogger
+        StepLogger(every=max(1, u_hist.shape[0] // 50)).log_run(
+            stats, dt_phys=cfg.time_step)
     n = u_hist.shape[0]
 
     # history arrays shaped like the reference accumulators: initial

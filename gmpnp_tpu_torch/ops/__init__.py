@@ -7,9 +7,11 @@ Kernels:
   ``gmpnp_tpu/ops/ell_spmv.py::ell_block_contract_pallas``.  It is the
   matvec of the carried-mode f32 chord GMRES (``solve.slab.slab_apply_f32``)
   and of ``fem.assembly.BlockELL.matvec`` on CUDA tensors: the f64 GMRES
-  of the exact slab path and of the 1D ``solve.linear.tridiag_mp_solve``.
+  of the exact slab path, of the 1D ``solve.linear.tridiag_mp_solve`` and
+  of the Krylov fallbacks (every AMG level included).
 """
 
-from gmpnp_tpu_torch.ops.ell_spmv import LAUNCHES, ell_spmv, ell_spmv_reference
+from gmpnp_tpu_torch.ops.ell_spmv import (
+    LAUNCHES, SHAPE_LAUNCHES, ell_spmv, ell_spmv_reference)
 
-__all__ = ["LAUNCHES", "ell_spmv", "ell_spmv_reference"]
+__all__ = ["LAUNCHES", "SHAPE_LAUNCHES", "ell_spmv", "ell_spmv_reference"]

@@ -23,7 +23,8 @@ share of the bound reached: ``PERF.md`` section 6.
 
 ``ell_spmv`` launches the kernel for CUDA tensors (or raises) and runs the
 plain version ``ell_spmv_reference`` for CPU tensors only.  ``LAUNCHES``
-counts kernel launches per dtype.
+counts kernel launches per dtype and ``SHAPE_LAUNCHES`` per (N, K, f,
+dtype name).
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ import torch
 
 #: kernel launches per dtype, counted where the kernel is launched
 LAUNCHES = {torch.float32: 0, torch.float64: 0}
+#: kernel launches per (N, K, f, dtype name), counted at the same place
+SHAPE_LAUNCHES = {}
 
 #: warps per block in csrc/ell_spmv.cu (kWarps): a tile holds at least as
 #: many vertices, so that no warp is without one
@@ -136,6 +139,8 @@ def ell_spmv(flat: torch.Tensor, adj: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"ell_spmv kernel launch failed: CUDA error {err}")
     LAUNCHES[flat.dtype] += 1
+    key = (N, K, f, str(flat.dtype).replace("torch.", ""))
+    SHAPE_LAUNCHES[key] = SHAPE_LAUNCHES.get(key, 0) + 1
     return y
 
 

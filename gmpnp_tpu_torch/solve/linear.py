@@ -5,12 +5,14 @@
   sequential block-Thomas loop (the oracle), and by ``tridiag_mp_solve``
   (an f32 CR factorization preconditioning f64 GMRES).
 - Restarted GMRES (CGS2 Arnoldi, Givens residual tracking) is the Krylov
-  iteration of the z-slab direct solver (solve.slab) and of
-  ``tridiag_mp_solve``; its matvec is the block-ELL kernel on CUDA tensors.
+  iteration of the z-slab direct solver (solve.slab), of
+  ``tridiag_mp_solve`` and of the ``kind='gmres'`` fallback; BiCGStab is
+  the ``kind='bicgstab'`` fallback.  Their matvec is the block-ELL kernel
+  on CUDA tensors.
+- Preconditioners for the Krylov kinds: block-Jacobi, multicolor block
+  SSOR (colors from ``greedy_vertex_coloring``) and aggregation AMG
+  (solve.amg).
 - ``dense_solve`` for tests and small systems.
-
-BiCGStab and the block-Jacobi/SSOR preconditioners of
-``gmpnp_tpu/solve/linear.py`` are still to be ported (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -247,6 +249,117 @@ def tridiag_mp_solve(ell: BlockELL, rhs: torch.Tensor,
                  restart=min(max_refine, 30), maxiter=max_refine)
 
 
+# ---------------------------------------------------------------------------
+# Preconditioners
+# ---------------------------------------------------------------------------
+
+def block_jacobi_preconditioner(ell: BlockELL) -> Callable[[torch.Tensor],
+                                                            torch.Tensor]:
+    """M^{-1} z with M = block diagonal of the matrix; z, out: (N, f)."""
+    Dinv = block_inv(ell.diag_blocks())
+
+    def apply(z):
+        return _mv(Dinv, z)
+
+    return apply
+
+
+def greedy_vertex_coloring(adj: "np.ndarray") -> "np.ndarray":
+    """Host-side greedy graph coloring of the (padded) adjacency table.
+
+    Adjacent vertices get different colors, so a Gauss-Seidel sweep can
+    update each color as one batched, order-independent operation — the
+    TPU-parallel replacement for the inherently sequential GS recursion.
+    Returns (N,) int32 colors.
+    """
+    import numpy as _np
+
+    N = adj.shape[0]
+    colors = _np.full(N, -1, dtype=_np.int32)
+    for v in range(N):
+        used = set(colors[u] for u in adj[v] if u != v and colors[u] >= 0)
+        c = 0
+        while c in used:
+            c += 1
+        colors[v] = c
+    return colors
+
+
+def multicolor_ssor_preconditioner(
+    ell: BlockELL,
+    colors: "np.ndarray",
+    sweeps: int = 1,
+    omega: float = 1.0,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Block-SSOR preconditioner via multicolor sweeps.
+
+    M = (D/w + L) (D/w)^{-1} (D/w + U); application solves the two
+    triangular block systems by sweeping the colors forward then backward —
+    each color is one batched block solve (all rows of a color are mutually
+    non-adjacent).  ``colors`` comes from :func:`greedy_vertex_coloring`
+    (or ``FemSpace.colors``), host-side, once per mesh.
+
+    Each color's vertex list is padded to the longest with its first
+    vertex, as in the reference; a padded row computes the same value as
+    the row it repeats, so which duplicate write lands does not matter.
+    The off-diagonal rows of a color are one gather of their block rows
+    and of ``z[adj]`` and one batched matrix-vector product (``bmm``).
+    """
+    N, K, f, _ = ell.shape4
+    dev = ell.flat.device
+    colors_np = np.asarray(colors)
+    nc = int(colors_np.max()) + 1
+    maxlen = max((colors_np == c).sum() for c in range(nc))
+    color_lists = []
+    for c in range(nc):
+        verts = np.nonzero(colors_np == c)[0]
+        pad = np.full(maxlen - len(verts), verts[0], dtype=np.int64)
+        color_lists.append(torch.as_tensor(np.concatenate([verts, pad]),
+                                           dtype=torch.int64, device=dev))
+
+    D = ell.diag_blocks() / omega
+    Dinv = block_inv(D)
+    # off-diagonal part: the flat layout with each row's diagonal block
+    # (columns diag_slot*f .. diag_slot*f + f-1) zeroed
+    dcols = (ell.diag_slot[:, None] * f
+             + torch.arange(f, device=dev)[None, :])
+    dmask = torch.zeros((N, K * f), dtype=torch.bool, device=dev)
+    dmask.scatter_(1, dcols, True)
+    offflat = ell.flat.masked_fill(dmask[:, None, :], 0.0)
+    adj = ell.adj.long()
+
+    def offdiag_rows(z, verts):
+        """sum_k offblocks[v,k] z[adj[v,k]] for a vertex set."""
+        blk = offflat[verts]                          # (M, f, K*f)
+        zg = z[adj[verts]].reshape(len(verts), K * f, 1)
+        return torch.bmm(blk, zg)[..., 0]
+
+    def sweep(z, r, order):
+        for c in order:
+            verts = color_lists[c]
+            rhs = r[verts] - offdiag_rows(z, verts)
+            z[verts] = _mv(Dinv[verts], rhs)
+        return z
+
+    def ssor_solve(r):
+        # forward: (D/w + L)^{-1} r -> scale by D/w -> backward (D/w + U)^{-1}
+        z = sweep(torch.zeros_like(r), r, range(nc))
+        z = _mv(D, z)
+        return sweep(torch.zeros_like(r), z, range(nc - 1, -1, -1))
+
+    def apply(r):
+        z = ssor_solve(r)
+        for _ in range(sweeps - 1):   # extra sweeps = stationary iteration
+            z = z + ssor_solve(r - ell.matvec(z))
+        return z
+
+    return apply
+
+
+# ---------------------------------------------------------------------------
+# Krylov solvers
+# ---------------------------------------------------------------------------
+
 class KrylovResult(NamedTuple):
     x: torch.Tensor
     resnorm: float
@@ -257,6 +370,12 @@ class KrylovResult(NamedTuple):
 # Breakdown guard magnitude, the reference's value: representable in f32
 # and far below any legitimate quantity in the scaled systems solved here.
 _TINY = 1e-30
+
+
+def _guard(x):
+    """Replace ~zero denominators with a representable tiny value."""
+    return torch.where(torch.abs(x) < _TINY,
+                       torch.full_like(x, _TINY), x)
 
 
 def _norm(v):
@@ -374,6 +493,72 @@ def gmres(
         total_it += k
         conv = bool(rnorm <= target)
     return KrylovResult(x.reshape(shape), float(rnorm), total_it, conv)
+
+
+def bicgstab(
+    matvec: Callable,
+    b: torch.Tensor,
+    Minv: Optional[Callable] = None,
+    x0: Optional[torch.Tensor] = None,
+    tol: float = 1e-8,
+    atol: float = 0.0,
+    maxiter: int = 500,
+) -> KrylovResult:
+    """Preconditioned BiCGStab (right preconditioning).
+
+    The reference's ``while_loop`` becomes a Python loop with the same
+    stopping rule, tested before every iteration: go on while the residual
+    is above target, the budget is not spent, and the state is healthy
+    (finite residual, rho and omega; |rho|, |omega| above the breakdown
+    guard; residual under 1e12).  The predicate is one device tensor read
+    back through ``sync.to_host`` per iteration.
+    """
+    shape = b.shape
+    dtype = b.dtype
+    dev = b.device
+    nd = _NP_DTYPE[dtype]
+    bflat = b.reshape(-1)
+    if Minv is None:
+        Minv = lambda z: z
+    mv = lambda v: matvec(v.reshape(shape)).reshape(-1)
+    pc = lambda v: Minv(v.reshape(shape)).reshape(-1)
+
+    x = torch.zeros_like(bflat) if x0 is None else x0.reshape(-1)
+    r = bflat - mv(x)
+    rhat = r
+    bnorm = nd(to_host(_norm(bflat)))
+    target = max(nd(tol) * bnorm, nd(atol), nd(_TINY))
+
+    def going(r, rho, omega):
+        rn = _norm(r)
+        healthy = (torch.isfinite(rn) & torch.isfinite(rho)
+                   & torch.isfinite(omega) & (torch.abs(rho) > _TINY)
+                   & (torch.abs(omega) > _TINY) & (rn < 1e12))
+        return bool(to_host((rn > target) & healthy))
+
+    p = torch.zeros_like(bflat)
+    v = torch.zeros_like(bflat)
+    one = torch.ones((), dtype=dtype, device=dev)
+    rho, alpha, omega = one, one, one
+    it = 0
+    while it < maxiter and going(r, rho, omega):
+        rho_new = torch.dot(rhat, r)
+        beta = (rho_new / _guard(rho)) * (alpha / _guard(omega))
+        p = r + beta * (p - omega * v)
+        phat = pc(p)
+        v = mv(phat)
+        alpha = rho_new / _guard(torch.dot(rhat, v))
+        s = r - alpha * v
+        shat = pc(s)
+        t = mv(shat)
+        omega = torch.dot(t, s) / _guard(torch.dot(t, t))
+        x = x + alpha * phat + omega * shat
+        r = s - omega * t
+        rho = rho_new
+        it += 1
+    rnorm = nd(to_host(_norm(r)))
+    return KrylovResult(x.reshape(shape), float(rnorm), it,
+                        bool(rnorm <= target))
 
 
 def dense_solve(ell: BlockELL, rhs: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,9 @@ builders call :func:`full_f32_precision`, the counterpart of the reference's
 ``Precision.HIGHEST``.  Every m x m inverse keeps the reference's one
 Newton-Schulz refinement pass.
 
-The cyclic-reduction variants (``slab_mode='cr'``) are still to be ported.
+``slab_mode='cr'`` replaces the Thomas scan by slab-granular block cyclic
+reduction (``slab_factor_cr``): ceil(log2 S) levels of batched m x m
+inverses instead of S sequential ones.
 """
 
 from __future__ import annotations
@@ -242,6 +244,22 @@ def slab_factor_fused(ell: BlockELL, plan: SlabPlan,
                        Al=torch.stack(Als))
 
 
+def slab_factor(lower: torch.Tensor, diag: torch.Tensor,
+                upper: torch.Tensor) -> SlabFactors:
+    """Block-Thomas forward elimination of given (S, m, m) bands (the
+    unfused form of ``slab_factor_fused``)."""
+    m = diag.shape[1]
+    Cp_prev = torch.zeros((m, m), dtype=diag.dtype, device=diag.device)
+    Dinvs, Cps = [], []
+    for A, Bd, C in zip(lower, diag, upper):
+        Dinv = _inv_refined(Bd - A @ Cp_prev)
+        Cp_prev = Dinv @ C
+        Dinvs.append(Dinv)
+        Cps.append(Cp_prev)
+    return SlabFactors(Dinv=torch.stack(Dinvs), Cp=torch.stack(Cps),
+                       Al=lower)
+
+
 def slab_solve(factors: SlabFactors, d: torch.Tensor) -> torch.Tensor:
     """Solve with precomputed factors; d, result: (S, m) — or (S, m, k)
     for k simultaneous right-hand sides.  A forward and a backward sweep of
@@ -261,6 +279,120 @@ def slab_solve(factors: SlabFactors, d: torch.Tensor) -> torch.Tensor:
     return torch.stack(xs)
 
 
+class CRLevel(NamedTuple):
+    """One elimination level of the slab-granular block cyclic reduction.
+
+    Odd-position slabs of this level are eliminated; even positions form
+    the next (coarser) level.  ``L``/``U`` act on the even positions in
+    the downward RHS pass; ``invBo``/``Ao``/``Co`` reconstruct the odd
+    solutions in the upward pass."""
+
+    invBo: torch.Tensor   # (n_odd, m, m) inverses of the odd diagonals
+    L: torch.Tensor       # (n_even, m, m) A_even @ invBo[left]  (row 0 = 0)
+    U: torch.Tensor       # (n_even, m, m) C_even @ invBo[right] (pad = 0)
+    Ao: torch.Tensor      # (n_odd, m, m) original odd lower band
+    Co: torch.Tensor      # (n_odd, m, m) original odd upper band
+
+
+class CRFactors(NamedTuple):
+    levels: tuple           # fine-to-coarse CRLevel records
+    root_inv: torch.Tensor  # (m, m) inverse of the final single block
+
+
+def _cr_level(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor):
+    """One block-cyclic-reduction elimination step on (S, m, m) bands.
+
+    Returns the level record plus the (ceil(S/2), m, m) bands of the
+    Schur complement on the even positions; the level's inversions are
+    one batched call.  Odd S is padded to even with a decoupled identity
+    row (A=C=0, B=I) at the tail, and odd/even positions are split by a
+    reshape, as in the reference."""
+    S, m = A.shape[0], A.shape[1]
+    if S % 2 == 1:   # pad: x_pad = d_pad, fully decoupled
+        eye = torch.eye(m, dtype=A.dtype, device=A.device)[None]
+        zpad = torch.zeros((1, m, m), dtype=A.dtype, device=A.device)
+        A = torch.cat([A, zpad])
+        B = torch.cat([B, eye])
+        C = torch.cat([C, zpad])
+        S += 1
+    h = S // 2
+    Ae, Ao = A.reshape(h, 2, m, m).unbind(1)
+    Be, Bo = B.reshape(h, 2, m, m).unbind(1)
+    Ce, Co = C.reshape(h, 2, m, m).unbind(1)
+    invBo = _inv_refined(Bo)
+    zero = torch.zeros((1, m, m), dtype=A.dtype, device=A.device)
+
+    # L_j = A[2j] @ invBo[j-1]  (j >= 1; slab 0 has no left neighbor)
+    L = torch.cat([zero, Ae[1:] @ invBo[:h - 1]])
+    # U_j = C[2j] @ invBo[j]    (the padded tail's Ce row is zero)
+    U = Ce @ invBo
+
+    Co_prev = torch.cat([zero, Co[:h - 1]])       # C[2j-1]
+    B2 = Be - L @ Co_prev - U @ Ao
+    A2 = -torch.cat([zero, L[1:] @ Ao[:h - 1]])
+    C2 = -(U @ Co)
+    return CRLevel(invBo=invBo, L=L, U=U, Ao=Ao, Co=Co), (A2, B2, C2)
+
+
+def slab_factor_cr(lower: torch.Tensor, diag: torch.Tensor,
+                   upper: torch.Tensor) -> CRFactors:
+    """Block cyclic reduction over slabs: ceil(log2 S) levels of batched
+    m x m inversions and matmuls instead of block-Thomas's S sequential
+    inversions (~3x the matmul FLOPs)."""
+    levels = []
+    A, B, C = lower, diag, upper
+    while A.shape[0] > 1:
+        lvl, (A, B, C) = _cr_level(A, B, C)
+        levels.append(lvl)
+    return CRFactors(levels=tuple(levels), root_inv=_inv_refined(B[0]))
+
+
+def slab_factor_cr_fused(ell: BlockELL, plan: SlabPlan,
+                         dtype=torch.float32) -> CRFactors:
+    """Band relayout (per-slab gather, see ``_band_of_slab_fn``) followed
+    by the cyclic-reduction factorization."""
+    band_of_slab = _band_of_slab_fn(ell, plan, dtype)
+    lo, di, up = (torch.stack(b) for b in
+                  zip(*(band_of_slab(s) for s in range(plan.S))))
+    return slab_factor_cr(lo, di, up)
+
+
+def slab_solve_cr(factors: CRFactors, d: torch.Tensor) -> torch.Tensor:
+    """Solve with a CR factorization; d, result: (S, m) or (S, m, k).
+    2*ceil(log2 S) batched stages."""
+    vec = d.dim() == 2
+    if vec:
+        d = d[..., None]
+    stack = []
+    for lvl in factors.levels:
+        S_l = d.shape[0]
+        if S_l % 2 == 1:
+            d = torch.cat([d, torch.zeros((1,) + tuple(d.shape[1:]),
+                                          dtype=d.dtype, device=d.device)])
+        h = d.shape[0] // 2
+        de, do = d.reshape(h, 2, *d.shape[1:]).unbind(1)
+        zero = torch.zeros((1,) + tuple(d.shape[1:]), dtype=d.dtype,
+                           device=d.device)
+        do_prev = torch.cat([zero, do[:h - 1]])
+        stack.append((do, S_l))
+        d = de - lvl.L @ do_prev - lvl.U @ do
+    x = (factors.root_inv @ d[0])[None]           # (1, m, k)
+    for lvl, (do, S_l) in zip(reversed(factors.levels), reversed(stack)):
+        h = do.shape[0]
+        zero = torch.zeros((1,) + tuple(x.shape[1:]), dtype=x.dtype,
+                           device=x.device)
+        xe_next = torch.cat([x[1:], zero])
+        xo = lvl.invBo @ (do - lvl.Ao @ x - lvl.Co @ xe_next)
+        x = torch.stack([x, xo], dim=1).reshape(2 * h, *x.shape[1:])
+        if S_l % 2 == 1:
+            x = x[:S_l]
+    return x[..., 0] if vec else x
+
+
+def _solver_of(factors):
+    return slab_solve_cr if isinstance(factors, CRFactors) else slab_solve
+
+
 class SlabSolveResult(NamedTuple):
     x: torch.Tensor
     resnorm: float
@@ -273,20 +405,21 @@ class SlabPrepared(NamedTuple):
     (refresh='step' within a time step, 'carried' across steps)."""
     ell_eq: BlockELL          # equilibrated matrix (f64)
     Dinv0: torch.Tensor       # (N, f, f) block-row scaling
-    factors: SlabFactors      # f32 block-Thomas factorization
+    factors: object           # f32 SlabFactors (Thomas) or CRFactors
 
 
 def slab_prepare(ell: BlockELL, plan: SlabPlan,
                  mode: str = "thomas") -> SlabPrepared:
-    """Equilibrate in f64, relayout to bands, factor in f32."""
-    if mode != "thomas":
-        raise NotImplementedError(
-            f"slab_mode={mode!r}: the cyclic-reduction factorization is "
-            f"still to be ported (ROADMAP queue 1); use 'thomas'")
+    """Equilibrate in f64, relayout to bands, factor in f32.
+
+    mode='thomas': sequential block-Thomas (S sequential m x m
+    inversions); mode='cr': slab-granular block cyclic reduction (batched
+    inversions, ceil(log2 S) levels) — see slab_factor_cr."""
     Dinv0 = block_inv(ell.diag_blocks())
     ell_eq = ell.scale_rows(Dinv0)
+    factor = slab_factor_cr_fused if mode == "cr" else slab_factor_fused
     return SlabPrepared(ell_eq=ell_eq, Dinv0=Dinv0,
-                        factors=slab_factor_fused(ell_eq, plan))
+                        factors=factor(ell_eq, plan))
 
 
 def slab_apply(
@@ -303,10 +436,11 @@ def slab_apply(
 
     out_dtype = rhs.dtype
     b = torch.einsum("nfg,ng->nf", prep.Dinv0, rhs)
+    solver = _solver_of(prep.factors)
 
     def solve32(r64):
         ds = plan.to_slabs(r64.to(torch.float32))
-        xs = slab_solve(prep.factors, ds)
+        xs = solver(prep.factors, ds)
         return plan.from_slabs(xs).to(out_dtype)
 
     res = gmres(prep.ell_eq.matvec, b, Minv=solve32, tol=tol,
@@ -343,12 +477,13 @@ def slab_apply_f32(
     # hoisted once per call: the f32 copy the kernel reads
     flat32 = prep.ell_eq.flat.to(torch.float32).contiguous()
     adj = prep.ell_eq.adj
+    solver = _solver_of(prep.factors)
 
     def mv(x32):
         return ell_spmv(flat32, adj, x32)
 
     def pc(r32):
-        return plan.from_slabs(slab_solve(prep.factors, plan.to_slabs(r32)))
+        return plan.from_slabs(solver(prep.factors, plan.to_slabs(r32)))
 
     res = gmres(mv, b, Minv=pc, tol=tol,
                 restart=min(max_refine, 16), maxiter=max_refine)
@@ -365,7 +500,8 @@ def slab_direct_solve(
     mode: str = "thomas",
 ) -> SlabSolveResult:
     """Mixed-precision direct solve of ``ell @ x = rhs``: f64 block-row
-    equilibration, f32 band factorization, f64 GMRES preconditioned by the
-    f32 solve (``iters`` counts GMRES iterations)."""
+    equilibration, f32 band factorization (``mode`` 'thomas' or 'cr'), f64
+    GMRES preconditioned by the f32 solve (``iters`` counts GMRES
+    iterations)."""
     return slab_apply(slab_prepare(ell, plan, mode=mode), rhs, plan,
                       tol=tol, max_refine=max_refine)

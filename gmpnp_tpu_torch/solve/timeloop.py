@@ -8,11 +8,13 @@ Data-dependent per-step behavior of the reference — staged dt schedules,
 Sechenov Dirichlet updates (3D/MPNP_CO2ER_pore.py:815-838) — enters through
 ``theta``: a dict produced per step by a model-supplied carry update.
 
-Ported so far: the 3D slab path (``kind='slab_direct'`` with
-``refresh`` in {'iter', 'step', 'carried'}), the 1D block-tridiagonal
-kinds (``tridiag_cr``, also carried, and ``tridiag_thomas``) and the dense
-test solver.  The Krylov kinds and ``calibrate_refresh``
-(``refresh='auto'``) are still to be ported (ROADMAP queue 1).
+Kinds: the 3D slab path (``kind='slab_direct'``, ``slab_mode`` 'thomas'
+or 'cr', ``refresh`` in {'iter', 'step', 'carried'}), the 1D
+block-tridiagonal kinds (``tridiag_cr``, also carried, and
+``tridiag_thomas``), the Krylov fallbacks (``gmres``, ``bicgstab``, with
+block-Jacobi, multicolor SSOR or AMG preconditioning) and the dense test
+solver.  ``refresh='auto'`` is resolved by timing both modes
+(``calibrate_refresh``) before a step is built.
 """
 
 from __future__ import annotations
@@ -24,16 +26,20 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from gmpnp_tpu_torch.fem.assembly import FemSpace
+from gmpnp_tpu_torch.fem.assembly import BlockELL, FemSpace
 from gmpnp_tpu_torch.fem.dirichlet import DirichletBC
 from gmpnp_tpu_torch.fem.forms import WeakForm
 from gmpnp_tpu_torch.solve.linear import (
+    bicgstab,
+    block_jacobi_preconditioner,
     block_tridiag_apply_cr,
     block_tridiag_factor_cr,
     block_tridiag_from_ell,
     block_tridiag_solve_cr,
     block_tridiag_solve_thomas,
     dense_solve,
+    gmres,
+    multicolor_ssor_preconditioner,
     tridiag_mp_solve,
 )
 from gmpnp_tpu_torch.solve.newton import newton_solve
@@ -45,6 +51,7 @@ from gmpnp_tpu_torch.solve.slab import (
     slab_direct_solve,
     slab_prepare,
 )
+from gmpnp_tpu_torch.solve.smallblock import block_inv
 from gmpnp_tpu_torch.sync import to_host
 
 
@@ -73,23 +80,27 @@ class NewtonConfig:
 @dataclass(frozen=True)
 class LinearConfig:
     """Linear-solver selection per model: the fields and defaults of
-    ``gmpnp_tpu.solve.timeloop.LinearConfig`` that the ported kinds read
-    (see its docstring).
+    ``gmpnp_tpu.solve.timeloop.LinearConfig`` (see its docstring).
 
-    Ported: kind 'slab_direct' (z-slab mixed-precision direct solver,
-    solve.slab), 'tridiag_cr' (1D block cyclic reduction) and
-    'tridiag_thomas' (1D oracle), 'dense' (tests); refresh 'iter' (exact
-    Newton), 'step' (one slab factorization per step) and 'carried'
-    (factorization carried across steps, chord Newton —
-    ``make_carried_step``).  ``solve_dtype`` is read by 'tridiag_cr' only:
-    'f32' selects ``tridiag_mp_solve`` (f32 CR factorization, f64 GMRES
-    polish over the block-ELL kernel) in place of the all-f64 CR.  The
-    other Krylov-kind fields (atol, restart, maxiter, precond,
-    ssor_sweeps) come with those kinds (ROADMAP queue 1).  The reference's
-    ``matvec`` selector has no counterpart: a CUDA tensor always takes the
-    kernel."""
+    kind: 'slab_direct' (z-slab mixed-precision direct solver, solve.slab;
+    ``slab_mode`` 'thomas' or 'cr'), 'tridiag_cr' (1D block cyclic
+    reduction) and 'tridiag_thomas' (1D oracle), 'gmres' and 'bicgstab'
+    (Krylov fallbacks; ``precond`` 'block_jacobi', 'ssor' or 'amg';
+    ``solve_dtype='f32'`` equilibrates in f64 and iterates in f32), 'dense'
+    (tests).  refresh: 'iter' (exact Newton), 'step' (one slab
+    factorization per step), 'carried' (factorization carried across
+    steps, chord Newton — ``make_carried_step``) or 'auto' (resolved by
+    ``calibrate_refresh``).  ``solve_dtype='f32'`` with 'tridiag_cr'
+    selects ``tridiag_mp_solve``.  ``jac_dtype='f32'`` evaluates element
+    Jacobians in f32.  The reference's ``matvec`` selector has no
+    counterpart: a CUDA tensor always takes the kernel."""
     kind: str = "tridiag_cr"
     tol: float = 1.0e-8
+    atol: float = 0.0
+    restart: int = 30
+    maxiter: int = 300
+    precond: str = "block_jacobi"   # 'block_jacobi' | 'ssor' | 'amg'
+    ssor_sweeps: int = 1
     max_refine: int = 40
     max_slabs: Optional[int] = None
     slab_mode: str = "thomas"
@@ -115,12 +126,10 @@ class StepStats(NamedTuple):
 
 _LINEAR_KINDS = ("tridiag_cr", "tridiag_thomas", "dense", "slab_direct",
                  "gmres", "bicgstab")
-_PORTED_KINDS = ("dense", "slab_direct", "tridiag_cr", "tridiag_thomas")
 
 
 def _validate_linear_config(cfg: LinearConfig) -> None:
-    """Fail fast on unrecognized string knobs, and on settings whose code
-    is still to be ported."""
+    """Fail fast on unrecognized string knobs."""
     if cfg.kind not in _LINEAR_KINDS:
         raise ValueError(
             f"unknown linear solver kind {cfg.kind!r}; one of {_LINEAR_KINDS}")
@@ -130,17 +139,13 @@ def _validate_linear_config(cfg: LinearConfig) -> None:
     if cfg.slab_mode not in ("thomas", "cr"):
         raise ValueError(f"slab_mode must be 'thomas' or 'cr', got "
                          f"{cfg.slab_mode!r}")
+    if cfg.precond not in ("block_jacobi", "ssor", "amg"):
+        raise ValueError(f"precond must be 'block_jacobi', 'ssor' or "
+                         f"'amg', got {cfg.precond!r}")
     for name in ("jac_dtype", "chord_dtype", "solve_dtype"):
         if getattr(cfg, name) not in ("f32", "f64"):
             raise ValueError(f"{name} must be 'f32' or 'f64', got "
                              f"{getattr(cfg, name)!r}")
-    if cfg.kind not in _PORTED_KINDS:
-        raise NotImplementedError(
-            f"linear kind {cfg.kind!r} is still to be ported (ROADMAP "
-            f"queue 1: Krylov kinds item 15)")
-    if cfg.jac_dtype != "f64":
-        raise NotImplementedError(
-            "jac_dtype='f32' is still to be ported (ROADMAP queue 1)")
 
 
 def _dt_of(theta, dt_key: str = "dt") -> float:
@@ -158,6 +163,17 @@ def _slab_plan(space: FemSpace, cfg: LinearConfig) -> SlabPlan:
         max_slabs=cfg.max_slabs)
 
 
+def _assemble(space: FemSpace, form: WeakForm, cfg: LinearConfig, bc, u,
+              u_prev, theta) -> BlockELL:
+    """The BC-applied Jacobian at u; with ``jac_dtype='f32'`` the element
+    Jacobians are evaluated in f32 (inexact Newton) and the assembled
+    values are held in u's dtype."""
+    aux = theta.get("_aux") if isinstance(theta, dict) else None
+    jdt = torch.float32 if cfg.jac_dtype == "f32" else None
+    return bc.apply_to_jacobian(
+        space.jacobian(form, u, u_prev, theta, aux=aux, dtype=jdt))
+
+
 def make_linear_solver(space: FemSpace, form: WeakForm, cfg: LinearConfig):
     """(bc, u_prev, theta) -> callable (u, r) -> (du, linear_iters)."""
     _validate_linear_config(cfg)
@@ -169,16 +185,47 @@ def make_linear_solver(space: FemSpace, form: WeakForm, cfg: LinearConfig):
     if cfg.refresh == "auto":
         raise ValueError(
             "refresh='auto' must be resolved to a concrete mode before "
-            "building a step")
+            "building a step — call calibrate_refresh (models wire this "
+            "automatically in their run() paths)")
     full_f32_precision()
     slab_plan = _slab_plan(space, cfg) if cfg.kind == "slab_direct" else None
+    amg_plan = None
+    if cfg.precond == "amg" and cfg.kind in ("gmres", "bicgstab"):
+        # aggregation structure depends only on the mesh graph: built once
+        # per space, shared by every assembled matrix (solve.amg)
+        from gmpnp_tpu_torch.solve.amg import AMGPlan
+        amg_plan = AMGPlan.build(np.asarray(space.adj), space.n_fields)
+
+    def krylov(ell, r):
+        out_dtype = r.dtype
+        if cfg.solve_dtype == "f32":
+            # equilibrate in f64 first (every block row O(1)), then iterate
+            # in native f32: the raw system's ~1e8 row-scale range is more
+            # than f32 rounding resolves
+            Dinv = block_inv(ell.diag_blocks())
+            ell = ell.scale_rows(Dinv)
+            ell = BlockELL(ell.adj, ell.flat.to(torch.float32),
+                           ell.diag_slot)
+            r = torch.einsum("nfg,ng->nf", Dinv, r).to(torch.float32)
+        if cfg.precond == "ssor":
+            pc = multicolor_ssor_preconditioner(
+                ell, space.colors, sweeps=cfg.ssor_sweeps)
+        elif cfg.precond == "amg":
+            from gmpnp_tpu_torch.solve.amg import amg_preconditioner
+            pc = amg_preconditioner(ell, amg_plan)
+        else:
+            pc = block_jacobi_preconditioner(ell)
+        if cfg.kind == "gmres":
+            res = gmres(ell.matvec, r, Minv=pc, tol=cfg.tol, atol=cfg.atol,
+                        restart=cfg.restart, maxiter=cfg.maxiter)
+        else:
+            res = bicgstab(ell.matvec, r, Minv=pc, tol=cfg.tol,
+                           atol=cfg.atol, maxiter=cfg.maxiter)
+        return res.x.to(out_dtype), res.iters
 
     def solver(bc: DirichletBC, u_prev, theta):
-        aux = theta.get("_aux") if isinstance(theta, dict) else None
-
         def assemble(u):
-            return bc.apply_to_jacobian(
-                space.jacobian(form, u, u_prev, theta, aux=aux))
+            return _assemble(space, form, cfg, bc, u, u_prev, theta)
 
         if cfg.kind == "slab_direct" and cfg.refresh == "step":
             # modified Newton: factor once at the step's start iterate,
@@ -207,6 +254,8 @@ def make_linear_solver(space: FemSpace, form: WeakForm, cfg: LinearConfig):
                     *block_tridiag_from_ell(ell), r), 0
             if cfg.kind == "dense":
                 return dense_solve(ell, r), 0
+            if cfg.kind in ("gmres", "bicgstab"):
+                return krylov(ell, r)
             res = slab_direct_solve(ell, r, slab_plan, tol=cfg.tol,
                                     max_refine=cfg.max_refine,
                                     mode=cfg.slab_mode)
@@ -318,9 +367,7 @@ def make_carried_step(
     full_f32_precision()
 
     def assemble(u, u_prev, theta, bc):
-        aux = theta.get("_aux") if isinstance(theta, dict) else None
-        return bc.apply_to_jacobian(
-            space.jacobian(form, u, u_prev, theta, aux=aux))
+        return _assemble(space, form, linear_cfg, bc, u, u_prev, theta)
 
     if linear_cfg.kind == "slab_direct":
         plan = _slab_plan(space, linear_cfg)
@@ -566,3 +613,89 @@ def run_transient(
             ys.append(record(u, stats))
     final = (u, extra, st) if stateful else (u, extra)
     return final, (_stack(ys) if ys else None)
+
+
+def _sync_device(u: torch.Tensor) -> None:
+    if u.device.type == "cuda":
+        torch.cuda.synchronize(u.device)
+
+
+def calibrate_refresh(
+    space,
+    form,
+    newton_cfg: NewtonConfig,
+    linear_cfg: LinearConfig,
+    bc_of_theta: Callable,
+    u0: torch.Tensor,
+    theta_of_carry: Callable,
+    extra0=None,
+    warm_steps: int = 2,
+    probe_steps: int = 4,
+    reps: int = 2,
+):
+    """Resolve ``LinearConfig.refresh='auto'`` by measurement.
+
+    Carried-factor chord Newton against exact Newton is a regime-dependent
+    trade (block size, mesh, physics, hardware), so it is picked per run by
+    timing both step programs from one warm state.
+
+    Protocol (the reference's): advance ``warm_steps`` exact steps from
+    ``u0`` in windows of ``probe_steps`` (at least one window), then time
+    ``probe_steps``-step windows of each mode from that same warm state,
+    one untimed execution and then best of ``reps``.  The carried window
+    includes its initial factorization.  Times are wall clock around work
+    that ends in ``torch.cuda.synchronize()`` on the card.
+
+    Returns ``(mode, times)``: mode 'carried' or 'iter', times the window
+    seconds.  Non-slab kinds are not timed: 'carried' for 'tridiag_cr',
+    'iter' otherwise, with empty times (the reference's fixed answers).
+    """
+    import time as _time
+
+    if linear_cfg.kind != "slab_direct":
+        return "carried" if linear_cfg.kind == "tridiag_cr" else "iter", {}
+
+    if extra0 is None:
+        extra0 = 0.0
+    step_e = make_implicit_step(
+        space, form, newton_cfg,
+        dataclasses.replace(linear_cfg, refresh="iter"),
+        bc_of_theta=bc_of_theta)
+    step_c, prep_init = make_carried_step(
+        space, form, newton_cfg,
+        dataclasses.replace(linear_cfg, refresh="carried"),
+        bc_of_theta=bc_of_theta)
+
+    def win_exact(u):
+        (u2, _), _ = run_transient(step_e, (u, extra0), probe_steps,
+                                   theta_of_carry=theta_of_carry)
+        return u2
+
+    def win_carried(u):
+        prep0 = prep_init(u, theta_of_carry((u, extra0), 0))
+        (u2, _, _), _ = run_transient(step_c, (u, extra0), probe_steps,
+                                      theta_of_carry=theta_of_carry,
+                                      step_state0=prep0)
+        return u2
+
+    u_warm = u0
+    for _ in range(max(1, -(-warm_steps // probe_steps))):
+        u_warm = win_exact(u_warm)
+    _sync_device(u_warm)
+
+    def best_of(fn):
+        fn(u_warm)                      # warm-up execution
+        ts = []
+        for _ in range(reps):
+            t0 = _time.perf_counter()
+            out = fn(u_warm)
+            _sync_device(out)
+            ts.append(_time.perf_counter() - t0)
+        return min(ts)
+
+    t_c = best_of(win_carried)
+    t_e = best_of(win_exact)
+    mode = "carried" if t_c <= t_e else "iter"
+    return mode, {"carried_window_s": round(t_c, 4),
+                  "iter_window_s": round(t_e, 4),
+                  "probe_steps": probe_steps}

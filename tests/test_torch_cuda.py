@@ -1,6 +1,8 @@
 """The port on a CUDA card: each kernel against its plain version, the 1D
-cyclic reduction on the card against the CPU, and a short transient on the
-card against the same transient on the CPU.
+cyclic reduction on the card against the CPU, a short transient on the
+card against the same transient on the CPU, and the Krylov fallbacks: the
+AMG Galerkin product and the SSOR preconditioner bitwise repeatable on the
+card, and the four Krylov solves card against CPU.
 
 These tests need a card and skip without one.  They import neither jax nor
 gmpnp_tpu, so they run on a machine that has only PyTorch:
@@ -11,8 +13,11 @@ Tolerances: the kernel in f32 1e-5 and in f64 1e-12 relative L2 (another
 summation order); the CR factor + apply in f64 1e-12 and in f32 1e-5
 (another summation order in the small matmuls); card vs CPU states 1e-6
 relative L2 (the f32-chord band: the chord directions are f32 GMRES
-solves).  Two launches on the same
-operands are bitwise equal (the kernel's order of summation is fixed).
+solves); Krylov solves card vs CPU: the same converged flag, iterations
+within 10% (another summation order in every dot product) and x within
+1e-6 (f64) / 1e-3 (f32, tol 1e-5 on a system of condition ~1e3).  Two
+launches on the same operands are bitwise equal (the kernel's order of
+summation is fixed).
 """
 
 import dataclasses
@@ -38,11 +43,12 @@ def cuda_device():
 @pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5),
                                        (np.float64, 1e-12)])
 # the pore's shapes for GMPNP (f=9) and reaction-diffusion (f=7), an edge
-# shape, and the 1D models' (L_n = 50 um) for the EDL (f=7) and
-# reaction-diffusion (f=5) models
+# shape, the 1D models' (L_n = 50 um) for the EDL (f=7) and
+# reaction-diffusion (f=5) models, and the AMG coarse level of the
+# L=50 nm, R=5 nm pore
 @pytest.mark.parametrize("N,K,f", [(2501, 15, 9), (1000, 7, 3),
                                    (2501, 15, 7), (5991, 3, 7),
-                                   (5991, 3, 5)])
+                                   (5991, 3, 5), (98, 15, 9)])
 def test_kernel_matches_plain_version(cuda_device, N, K, f, dtype, tol):
     rng = np.random.default_rng(5)
     flat = rng.normal(size=(N, f, K * f)).astype(dtype)
@@ -153,3 +159,97 @@ def test_carried_transient_card_matches_cpu(cuda_device):
     np.testing.assert_array_equal(it_d, it_c)
     assert launched > 0 and none == 0
     assert rel_l2(u_d, u_c) <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_at_amg_coarse_shape_repeatable(cuda_device, dtype):
+    rng = np.random.default_rng(13)
+    N, K, f = 98, 15, 9
+    flat = torch.as_tensor(rng.normal(size=(N, f, K * f)), dtype=dtype,
+                           device=cuda_device)
+    adj = torch.as_tensor(rng.integers(0, N, size=(N, K)).astype(np.int32),
+                          device=cuda_device)
+    x = torch.as_tensor(rng.normal(size=(N, f)), dtype=dtype,
+                        device=cuda_device)
+    y = ell_spmv(flat, adj, x)
+    assert torch.equal(y, ell_spmv(flat, adj, x))
+    ref = ell_spmv_reference(flat, adj, x)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert float((y - ref).norm() / ref.norm()) <= tol
+
+
+def _krylov_system(device, dtype=torch.float64):
+    """A 3-field reaction-diffusion Jacobian on the (2, 8) pore mesh (the
+    system of tests/test_torch_krylov.py), with its space and a seeded
+    rhs."""
+    from gmpnp_tpu_torch import fem, mesh
+
+    m = mesh.cylinder_mesh(50e-9, 5e-9, n_rings=2, n_layers=8)
+    m = m.with_markers(np.zeros(len(m.facets), dtype=np.int32))
+    sp = fem.FemSpace.build(m, 3, quad_degree=2, device=device)
+    form = fem.WeakForm(3, lambda u, gu, up, x, th: (1.0 * u, gu))
+    bc = fem.DirichletBC.from_vertex_sets(
+        m.num_vertices, 3, [(np.unique(m.facets.reshape(-1))[:4], 0, 0.0)],
+        device=device)
+    u = torch.ones((m.num_vertices, 3), dtype=torch.float64, device=device)
+    ell = bc.apply_to_jacobian(sp.jacobian(form, u, u, None))
+    rhs = torch.as_tensor(np.random.default_rng(7).normal(
+        size=(m.num_vertices, 3)), dtype=dtype, device=device)
+    return sp, ell, rhs
+
+
+def test_galerkin_and_ssor_repeatable_on_card(cuda_device):
+    from gmpnp_tpu_torch.solve.amg import AMGPlan, galerkin_coarse
+    from gmpnp_tpu_torch.solve.linear import multicolor_ssor_preconditioner
+
+    sp, ell, rhs = _krylov_system(cuda_device)
+    plan = AMGPlan.build(sp.adj, 3, coarsest_dofs=12)
+    a = galerkin_coarse(ell, plan.levels[0])
+    assert torch.equal(a.flat, galerkin_coarse(ell, plan.levels[0]).flat)
+    pc = multicolor_ssor_preconditioner(ell, sp.colors, sweeps=2)
+    z = pc(rhs)
+    torch.cuda.synchronize()
+    assert torch.equal(z, pc(rhs))
+    n0 = LAUNCHES[torch.float64]
+    pc(rhs)
+    assert LAUNCHES[torch.float64] == n0 + 1   # the extra sweep's matvec
+
+
+@pytest.mark.parametrize("kind,precond,solve_dtype", [
+    ("bicgstab", "block_jacobi", "f64"), ("gmres", "block_jacobi", "f32"),
+    ("gmres", "ssor", "f64"), ("gmres", "amg", "f64")])
+def test_krylov_card_matches_cpu(cuda_device, kind, precond, solve_dtype):
+    from gmpnp_tpu_torch.solve.amg import AMGPlan, amg_preconditioner
+    from gmpnp_tpu_torch.solve.linear import (
+        bicgstab, block_jacobi_preconditioner, gmres,
+        multicolor_ssor_preconditioner)
+    from gmpnp_tpu_torch.solve.smallblock import block_inv
+    from gmpnp_tpu_torch.testing import rel_l2
+
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        sp, ell, b = _krylov_system(dev)
+        if solve_dtype == "f32":
+            Dinv = block_inv(ell.diag_blocks())
+            ell = ell.scale_rows(Dinv)
+            ell = type(ell)(ell.adj, ell.flat.to(torch.float32),
+                            ell.diag_slot)
+            b = torch.einsum("nfg,ng->nf", Dinv, b).to(torch.float32)
+        pc = {"block_jacobi": lambda: block_jacobi_preconditioner(ell),
+              "ssor": lambda: multicolor_ssor_preconditioner(ell, sp.colors),
+              "amg": lambda: amg_preconditioner(
+                  ell, AMGPlan.build(sp.adj, 3, coarsest_dofs=12))}[precond]()
+        tol = 1e-10 if solve_dtype == "f64" else 1e-5
+        n0 = LAUNCHES[b.dtype]
+        if kind == "gmres":
+            res = gmres(ell.matvec, b, Minv=pc, tol=tol, restart=40,
+                        maxiter=400)
+        else:
+            res = bicgstab(ell.matvec, b, Minv=pc, tol=tol, maxiter=400)
+        out[dev.type] = (res, LAUNCHES[b.dtype] - n0)
+    (rd, launched), (rc, _) = out["cuda"], out["cpu"]
+    assert launched > 0
+    assert rd.converged == rc.converged
+    assert abs(rd.iters - rc.iters) <= max(1, rc.iters // 10)
+    err = rel_l2(rd.x.cpu().double().numpy(), rc.x.double().numpy())
+    assert err <= (1e-6 if solve_dtype == "f64" else 1e-3), err

@@ -80,7 +80,7 @@ COPIED = ["constants.py", "config.py", "native.py", "chem/bulk.py",
           "mesh/marking.py", "mesh/dolfin_xml.py", "io/__init__.py",
           "io/vtk.py", "io/writers.py", "fem/elements.py", "models/base.py",
           "models/stern.py", "cli/stern.py", "cli/bulk_soln.py",
-          "cli/mesh_tests.py"]
+          "cli/mesh_tests.py", "utils/logging.py"]
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -99,8 +99,14 @@ CLIS = ["pore_3d", "rxn_diff_3d", "edl_1d", "rxn_diff_1d", "stern",
         "bulk_soln", "mesh_tests"]
 
 
+# modules no CLI imports
+MODULES = ["io.checkpoint", "parallel", "parallel.sweep", "solve.amg",
+           "utils", "utils.logging", "utils.profiling"]
+
+
 def test_cli_import_loads_no_jax():
-    imports = "; ".join(f"import gmpnp_tpu_torch.cli.{c}" for c in CLIS)
+    imports = "; ".join([f"import gmpnp_tpu_torch.cli.{c}" for c in CLIS]
+                        + [f"import gmpnp_tpu_torch.{m}" for m in MODULES])
     code = (f"import sys; {imports}; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'gmpnp_tpu' "

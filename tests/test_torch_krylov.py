@@ -1,0 +1,322 @@
+"""Port vs reference: the Krylov fallback solvers (GMRES, BiCGStab) with
+their three preconditioners (block-Jacobi, multicolor SSOR, AMG), the host
+plans they use, and the Krylov kinds of ``make_linear_solver``.
+
+The system is the reference's own AMG test system
+(tests/test_amg.py::_poisson_system): a 3-field reaction-diffusion Jacobian
+on a (2, 8) generated pore mesh (171 vertices), the reference's matrix
+handed to the port through ``interop``, a numpy-seeded right-hand side.
+
+The reference's solves are read from ``goldens/torch_krylov.json`` (its
+XLA compiles take ~35 s on one CPU core, more than this file's budget);
+``python tests/test_torch_krylov.py`` rewrites that file from
+``gmpnp_tpu``.
+
+Tolerances, each with its reason:
+- host plans (coloring, ``FemSpace.colors``, ``AMGPlan``): equal — copied
+  numpy code;
+- ``galerkin_coarse``, block-Jacobi and SSOR applications: 1e-12 relative
+  L2 (f64, another summation order);
+- one V-cycle: 1e-5 — its coarsest solve is the reference's f32 LU, whose
+  factors differ between the two LAPACKs by f32 rounding (measured 1.4e-6
+  on this system);
+- f64 solves to tol 1e-10: x within 1e-10 relative L2 (measured <= 9e-11),
+  iterations within 2.  The counts are equal for GMRES with block-Jacobi
+  or SSOR and BiCGStab with SSOR or AMG; BiCGStab with block-Jacobi loses
+  agreement to rounding in its erratic middle phase (the two residual
+  histories drift from 1e-16 to 1e-2 apart between iterations 1 and 43,
+  then both converge: 83 against 85), and GMRES with AMG sees the f32
+  coarse-solve difference (60 against 59);
+- f32 equilibrated solves to tol 1e-6: GMRES iterations within 1 of the
+  reference's and x within 1e-5 (the f32 floor).  f32 BiCGStab drifts
+  faster still (84 against 157 iterations with block-Jacobi, 35 against
+  47 with SSOR): both converge, x within 1e-4, the counts are not held;
+- ``make_linear_solver`` on a 1D 2-field system (31 vertices): the dense
+  solve at rtol 1e-7 (f64 to tol 1e-10; the reference's tests/test_amg.py
+  bar) and 1e-3 relative L2 (f32 to tol 1e-4: f32 GMRES stalls near 1e-5
+  relative on this system, the reference's own note on f32 Givens
+  recursions);
+- one pore implicit step, BiCGStab against slab_direct: rtol 2e-6, atol
+  2e-8, the bar of tests/test_slab.py::test_newton_step_slab_vs_bicgstab.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from gmpnp_tpu.fem import DirichletBC as JDirichletBC  # noqa: E402
+from gmpnp_tpu.fem import FemSpace as JFemSpace  # noqa: E402
+from gmpnp_tpu.fem import WeakForm as JWeakForm  # noqa: E402
+from gmpnp_tpu.mesh import cylinder_mesh  # noqa: E402
+from gmpnp_tpu.solve import amg as jamg  # noqa: E402
+from gmpnp_tpu.solve import linear as jlin  # noqa: E402
+from gmpnp_tpu_torch import fem as tfem  # noqa: E402
+from gmpnp_tpu_torch import mesh as tmesh  # noqa: E402
+from gmpnp_tpu_torch.interop import blockell_from_numpy  # noqa: E402
+from gmpnp_tpu_torch.solve import amg as tamg  # noqa: E402
+from gmpnp_tpu_torch.solve import linear as tlin  # noqa: E402
+from gmpnp_tpu_torch.solve.smallblock import block_inv  # noqa: E402
+from gmpnp_tpu_torch.solve.timeloop import (  # noqa: E402
+    LinearConfig, make_implicit_step, make_linear_solver)
+from gmpnp_tpu_torch.testing import rel_l2  # noqa: E402
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens",
+                      "torch_krylov.json")
+F = 3
+KINDS = ("gmres", "bicgstab")
+PRECONDS = ("block_jacobi", "ssor", "amg")
+TOL = {"f64": 1e-10, "f32": 1e-6}
+
+
+def _reference_system():
+    """The reference's Jacobian (tests/test_amg.py::_poisson_system on a
+    (2, 8) mesh), its FemSpace and AMG plan, and the seeded rhs."""
+    import jax.numpy as jnp
+
+    mesh = cylinder_mesh(50e-9, 5e-9, n_rings=2, n_layers=8)
+    mesh = mesh.with_markers(np.zeros(len(mesh.facets), dtype=np.int32))
+    sp = JFemSpace.build(mesh, F, quad_degree=2)
+    form = JWeakForm(F, lambda u, gu, up, x, th: (1.0 * u, gu))
+    dverts = np.unique(mesh.facets.reshape(-1))[:4]
+    bc = JDirichletBC.from_vertex_sets(mesh.num_vertices, F,
+                                       [(dverts, 0, 0.0)])
+    u = jnp.ones((mesh.num_vertices, F))
+    ell = bc.apply_to_jacobian(sp.jacobian(form, u, u, None))
+    rhs = np.random.default_rng(7).normal(size=(mesh.num_vertices, F))
+    plan = jamg.AMGPlan.build(np.asarray(sp.adj), F, coarsest_dofs=12)
+    return sp, ell, rhs, plan
+
+
+@pytest.fixture(scope="module")
+def system():
+    sp, ell, rhs, plan = _reference_system()
+    tell = blockell_from_numpy(np.asarray(ell.adj), np.asarray(ell.flat),
+                               np.asarray(ell.diag_slot))
+    tplan = tamg.AMGPlan.build(np.asarray(sp.adj), F, coarsest_dofs=12)
+    return dict(sp=sp, ell=ell, rhs=rhs, plan=plan, tell=tell, tplan=tplan)
+
+
+def _reference_solve(ell, sp, plan, rhs, kind, precond, dtype):
+    """The reference's solve, as its make_linear_solver runs it (f32:
+    block-Jacobi equilibration in f64 first)."""
+    import jax
+    import jax.numpy as jnp
+    from gmpnp_tpu.fem.assembly import BlockELL
+    from gmpnp_tpu.solve.smallblock import block_inv as jblock_inv
+
+    b = jnp.asarray(rhs)
+    if dtype == "f32":
+        Dinv = jblock_inv(ell.diag_blocks())
+        ell = ell.scale_rows(Dinv)
+        ell = BlockELL(ell.adj, ell.flat.astype(jnp.float32), ell.diag_slot)
+        b = jnp.einsum("nfg,ng->nf", Dinv, b).astype(jnp.float32)
+    pc = {"block_jacobi": lambda: jlin.block_jacobi_preconditioner(ell),
+          "ssor": lambda: jlin.multicolor_ssor_preconditioner(ell, sp.colors),
+          "amg": lambda: jamg.amg_preconditioner(ell, plan)}[precond]()
+    if kind == "gmres":
+        fn = lambda v: jlin.gmres(ell.matvec, v, Minv=pc, tol=TOL[dtype],
+                                  restart=40, maxiter=400)
+    else:
+        fn = lambda v: jlin.bicgstab(ell.matvec, v, Minv=pc, tol=TOL[dtype],
+                                     maxiter=400)
+    res = jax.jit(fn)(b)
+    return {"iters": int(res.iters), "converged": bool(res.converged),
+            "x": np.asarray(res.x, np.float64).reshape(-1).tolist()}
+
+
+def write_golden():
+    sp, ell, rhs, plan = _reference_system()
+    out = {f"{k}/{p}/{d}": _reference_solve(ell, sp, plan, rhs, k, p, d)
+           for k in KINDS for p in PRECONDS for d in TOL}
+    with open(GOLDEN, "w") as fh:
+        json.dump(out, fh)
+
+
+def _port_precond(tell, colors, tplan, precond):
+    if precond == "block_jacobi":
+        return tlin.block_jacobi_preconditioner(tell)
+    if precond == "ssor":
+        return tlin.multicolor_ssor_preconditioner(tell, colors)
+    return tamg.amg_preconditioner(tell, tplan)
+
+
+def test_coloring_and_amg_plan_bit_identical():
+    from gmpnp_tpu.mesh import pore_boundary_markers
+
+    L, R = 100e-9, 5e-9
+    jm = pore_boundary_markers(cylinder_mesh(L, R, n_rings=2, n_layers=10),
+                               L, R)
+    tm = tmesh.pore_boundary_markers(
+        tmesh.cylinder_mesh(L, R, n_rings=2, n_layers=10), L, R)
+    js = JFemSpace.build(jm, 9, quad_degree=2)
+    ts = tfem.FemSpace.build(tm, 9, quad_degree=2, device="cpu")
+    np.testing.assert_array_equal(ts.colors, js.colors)
+    adj = np.asarray(js.adj)
+    got = tlin.greedy_vertex_coloring(adj)
+    want = jlin.greedy_vertex_coloring(adj)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    for kw in ({}, {"coarsest_dofs": 12}):
+        jp, tp = jamg.AMGPlan.build(adj, 9, **kw), tamg.AMGPlan.build(
+            adj, 9, **kw)
+        assert len(tp.levels) == len(jp.levels) >= 1
+        for a, b in zip(tp.levels, jp.levels):
+            assert a.nagg == b.nagg
+            for name in ("agg", "scatter", "coarse_adj", "coarse_diag_slot"):
+                x, y = getattr(a, name), getattr(b, name)
+                assert x.dtype == y.dtype, name
+                np.testing.assert_array_equal(x, y, err_msg=name)
+
+
+def test_galerkin_and_vcycle(system):
+    ell, tell = system["ell"], system["tell"]
+    plan, tplan = system["plan"], system["tplan"]
+    for lvl, tlvl in zip(plan.levels, tplan.levels):
+        want = jamg.galerkin_coarse(ell, lvl)
+        got = tamg.galerkin_coarse(tell, tlvl)
+        np.testing.assert_array_equal(got.adj.numpy(), np.asarray(want.adj))
+        assert rel_l2(got.flat.numpy(), np.asarray(want.flat)) < 1e-12
+        assert torch.equal(got.flat, tamg.galerkin_coarse(tell, tlvl).flat)
+    rhs = system["rhs"]
+    want = jamg.amg_vcycle(jamg.amg_prepare(ell, plan), plan, rhs)
+    got = tamg.amg_vcycle(tamg.amg_prepare(tell, tplan), tplan,
+                          torch.tensor(rhs))
+    assert rel_l2(got.numpy(), np.asarray(want)) < 1e-5
+
+
+@pytest.mark.parametrize("precond", ["block_jacobi", "ssor"])
+def test_preconditioner_application(system, precond):
+    ell, tell, rhs = system["ell"], system["tell"], system["rhs"]
+    colors = system["sp"].colors
+    if precond == "block_jacobi":
+        want = jlin.block_jacobi_preconditioner(ell)(rhs)
+        apply = tlin.block_jacobi_preconditioner(tell)
+    else:
+        want = jlin.multicolor_ssor_preconditioner(ell, colors,
+                                                   sweeps=2)(rhs)
+        apply = tlin.multicolor_ssor_preconditioner(tell, colors, sweeps=2)
+    got = apply(torch.tensor(rhs))
+    assert rel_l2(got.numpy(), np.asarray(want)) < 1e-12
+    # padded color lists write duplicate rows: the result is repeatable
+    assert torch.equal(got, apply(torch.tensor(rhs)))
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+@pytest.mark.parametrize("precond", PRECONDS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_krylov_matches_reference(system, kind, precond, dtype):
+    with open(GOLDEN) as fh:
+        ref = json.load(fh)[f"{kind}/{precond}/{dtype}"]
+    tell = system["tell"]
+    b = torch.tensor(system["rhs"])
+    if dtype == "f32":
+        Dinv = block_inv(tell.diag_blocks())
+        tell = tell.scale_rows(Dinv)
+        tell = tfem.BlockELL(tell.adj, tell.flat.to(torch.float32),
+                             tell.diag_slot)
+        b = torch.einsum("nfg,ng->nf", Dinv, b).to(torch.float32)
+    pc = _port_precond(tell, system["sp"].colors, system["tplan"], precond)
+    if kind == "gmres":
+        res = tlin.gmres(tell.matvec, b, Minv=pc, tol=TOL[dtype],
+                         restart=40, maxiter=400)
+    else:
+        res = tlin.bicgstab(tell.matvec, b, Minv=pc, tol=TOL[dtype],
+                            maxiter=400)
+    err = rel_l2(res.x.to(torch.float64).numpy().reshape(-1),
+                 np.asarray(ref["x"]))
+    print(f"{kind} {precond} {dtype}: iterations {res.iters} (reference "
+          f"{ref['iters']}), x {err:.3e} from the reference's")
+    assert res.converged == ref["converged"]
+    if dtype == "f32" and kind == "bicgstab":
+        # f32 BiCGStab: iteration counts are not held (see the docstring)
+        assert err < 1e-4, err
+        return
+    slack = 2 if dtype == "f64" else 1
+    assert abs(res.iters - ref["iters"]) <= slack, (res.iters, ref["iters"])
+    assert err < (1e-10 if dtype == "f64" else 1e-5), err
+
+
+def _port_linear_system(f=2, n=30):
+    """tests/test_amg.py::test_amg_precond_through_linear_config's system,
+    built by the port."""
+    mesh = tmesh.uniform_interval_mesh(n)
+    mesh = mesh.with_markers(np.zeros(len(mesh.facets), dtype=np.int32))
+    sp = tfem.FemSpace.build(mesh, f, quad_degree=2, device="cpu")
+    form = tfem.WeakForm(f, lambda u, gu, up, x, th: (u, gu))
+    bc = tfem.DirichletBC.from_vertex_sets(
+        mesh.num_vertices, f, [(np.array([0]), 0, 1.0)])
+    return sp, form, bc
+
+
+@pytest.mark.parametrize("solve_dtype", ["f64", "f32"])
+@pytest.mark.parametrize("precond", PRECONDS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_make_linear_solver_krylov_vs_dense(kind, precond, solve_dtype):
+    sp, form, bc = _port_linear_system()
+    cfg = LinearConfig(kind=kind, precond=precond, solve_dtype=solve_dtype,
+                       tol=1e-10 if solve_dtype == "f64" else 1e-4,
+                       maxiter=1000)
+    u = bc.project(torch.ones((sp.num_vertices, 2), dtype=torch.float64))
+    lin = make_linear_solver(sp, form, cfg)(bc, u, {})
+    r = bc.apply_to_residual(sp.residual(form, u, u, None), u)
+    du, iters = lin(u, r)
+    assert du.dtype == torch.float64 and iters > 0
+    ell = bc.apply_to_jacobian(sp.jacobian(form, u, u, None))
+    want = np.linalg.solve(ell.to_dense().numpy(), r.numpy().reshape(-1))
+    if solve_dtype == "f64":
+        np.testing.assert_allclose(du.numpy().reshape(-1), want,
+                                   rtol=1e-7, atol=1e-9)
+    else:
+        assert rel_l2(du.numpy().reshape(-1), want) < 1e-3
+
+
+def test_linear_config_validation():
+    sp, form, _ = _port_linear_system(f=1, n=10)
+    with pytest.raises(ValueError, match="precond"):
+        make_linear_solver(sp, form, LinearConfig(kind="gmres",
+                                                  precond="amgX"))
+    with pytest.raises(ValueError, match="kind"):
+        make_linear_solver(sp, form, LinearConfig(kind="cg"))
+    with pytest.raises(ValueError, match="jac_dtype"):
+        make_linear_solver(sp, form, LinearConfig(jac_dtype="bf16"))
+
+
+def test_pore_step_bicgstab_vs_slab_direct():
+    """tests/test_slab.py::test_newton_step_slab_vs_bicgstab, in the port:
+    one implicit GMPNP step (L=100 nm, R=10 nm, (2, 8) mesh) with BiCGStab
+    (block-Jacobi, tol 1e-10, maxiter 20,000) against slab_direct."""
+    from gmpnp_tpu_torch.models import pore_3d
+
+    cfg = pore_3d.Pore3DConfig(physics="GMPNP", L=100e-9, R=10e-9,
+                               mesh_resolution=(2, 8))
+    prog = pore_3d.build(cfg, device="cpu")
+    theta = {"dt": prog.dt_scaled,
+             "co2_s1": prog.eq_conc["CO2"] / prog.bulk_conc["CO2"]}
+    u0 = prog.initial_state()
+    steps = {k: make_implicit_step(prog.space, prog.form, cfg.newton, lin,
+                                   bc_of_theta=prog._bc_of_theta)
+             for k, lin in (("krylov", LinearConfig(kind="bicgstab",
+                                                    tol=1e-10,
+                                                    maxiter=20000)),
+                            ("direct", LinearConfig(kind="slab_direct",
+                                                    tol=1e-10)))}
+    u_k, st_k = steps["krylov"](u0, theta)
+    u_d, st_d = steps["direct"](u0, theta)
+    assert st_k.converged and st_d.converged
+    assert st_d.newton_iters <= st_k.newton_iters
+    np.testing.assert_allclose(u_d.numpy(), u_k.numpy(), rtol=2e-6,
+                               atol=2e-8)
+
+
+if __name__ == "__main__":
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    write_golden()
+    print(f"wrote {GOLDEN}")
