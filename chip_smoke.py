@@ -61,6 +61,20 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      ``slab_mode='cr'`` (against Thomas: the same Newton iterations, 1e-6,
      both factorizations timed) and ``jac_dtype='f32'``; the pore CLI with
      ``--linear_refresh auto`` (3 steps, the calibration printed);
+   - z-slab domain decomposition (``parallel.shard``): the pore CLI with
+     ``--shard 1`` (3 carried steps at L=50 nm, R=5 nm), then four ranks
+     sharing the card: ``make_sharded_pore_transient`` carried, 3 steps
+     at Newton tol 1e-9 and Krylov tol 1e-10, against the single-device
+     carried run at the same tolerances (1e-6); one exact step with the
+     replicated seam twice (bitwise equal) and with ``seam='ring'``
+     (1e-7); BiCGStab + block-Jacobi against slab_direct and a forced
+     ``max_retries`` step (dt_scale 0.5) at the (3, 40) mesh (N=1,517);
+     ``_run_sharded`` with a checkpoint directory, 2 steps then resumed
+     to 4, equal to an uninterrupted 4-step run.  The plan's per-rank
+     sizes and the bytes reckoned per rank are printed first; each
+     sharded step line adds Krylov iterations, ranks, devices, peak
+     device memory and the carried state's bytes per rank, each path
+     line host syncs per Krylov iteration;
 5. checks: 3-step carried runs on the (2, 10) mesh on the card and on the
    CPU for both pore physics (same Newton iterations; states within 1e-6,
    for reaction-diffusion at tight Newton tolerances), 3-step exact runs on
@@ -1116,6 +1130,262 @@ def newton_mode_paths(dev_name):
     return launches
 
 
+SHARD_RANKS = 4             # ranks of the sharded phase, all on one card
+SHARD_NEWTON_TOL, SHARD_KRYLOV_TOL = 1e-9, 1e-10
+SHARD_MID_MESH = (3, 40)    # N=1,517
+
+
+def _tensor_bytes(leaves):
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+@contextlib.contextmanager
+def timed_shard_steps(steps_log):
+    """Wraps parallel.shard.make_sharded_step so that each sharded step
+    (a retry is a step of its own) ends in a synchronize and records wall
+    ms, Newton and Krylov iterations, host syncs, ranks and devices, peak
+    device memory, the carried state's bytes per rank and kernel
+    launches."""
+    from gmpnp_tpu_torch import ops, sync
+    from gmpnp_tpu_torch.parallel import shard
+
+    orig = shard.make_sharded_step
+
+    def wrapped(*args, **kw):
+        out = orig(*args, **kw)
+        step, group = out[0], out[-1]
+
+        def timed(*a):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            l0 = dict(ops.LAUNCHES)
+            s0, t0 = sync.SYNCS, time.perf_counter()
+            res = step(*a)
+            torch.cuda.synchronize()
+            st = res[1]
+            rec = {"ms": (time.perf_counter() - t0) * 1e3,
+                   "newton": int(st[0]), "krylov": int(st[3]),
+                   "converged": bool(st[1]),
+                   "host_syncs": sync.SYNCS - s0, "ranks": group.n,
+                   "devices": sorted({str(d) for d in group.devices}),
+                   "peak_bytes": torch.cuda.max_memory_allocated(),
+                   "launches": {str(k).replace("torch.", ""): v - l0[k]
+                                for k, v in ops.LAUNCHES.items()}}
+            if len(res) == 3:
+                dev, rep = res[2]
+                rec["carry_bytes_per_rank"] = [
+                    _tensor_bytes(d) + _tensor_bytes(r)
+                    for d, r in zip(dev, rep)]
+            steps_log.append(rec)
+            return res
+
+        return (timed,) + tuple(out[1:])
+
+    shard.make_sharded_step = wrapped
+    try:
+        yield
+    finally:
+        shard.make_sharded_step = orig
+
+
+def shard_path(label, fn):
+    """One sharded path: launch counts set to 0 before it and read after
+    it, a path line and a line per sharded step.  Returns (launches, fn's
+    result, steps)."""
+    from gmpnp_tpu_torch import sync
+
+    steps = []
+    _zero_launches()
+    s0, t0 = sync.SYNCS, time.perf_counter()
+    with timed_shard_steps(steps):
+        out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    newton = sum(st["newton"] for st in steps)
+    krylov = sum(st["krylov"] for st in steps)
+    syncs = sync.SYNCS - s0
+    print(f"path {label}: wall_s={wall!r} steps={len(steps)} "
+          f"newton_total={newton} krylov_total={krylov} host_syncs={syncs} "
+          f"syncs_per_krylov={syncs / max(krylov, 1)!r} "
+          f"launches={launches}", flush=True)
+    for i, st in enumerate(steps):
+        print(f"  step {i}: " + json.dumps(st), flush=True)
+    return launches, out, steps
+
+
+def _band_bytes_per_rank(prog, n_ranks):
+    """The distributed SPIKE solver's per-rank band tables and f64 band
+    sums, reckoned from the plans before a run."""
+    from gmpnp_tpu_torch.parallel import shard
+
+    cfg = prog.config
+    plan = shard.ZShardPlan.build(
+        prog.mesh, cfg.n_fields, n_ranks, prog.bc.mask.cpu().numpy(),
+        prog.bc.values.cpu().numpy(), quad_degree=cfg.quad_degree)
+    markers = [m for m in plan.facets if prog.form.boundary.get(m)]
+    pp = shard.SlabPrecondPlan.build(plan, facet_markers=markers)
+    n_dest, n_pairs, f = pp.start.shape[1], pp.order.shape[1], pp.f
+    return plan, pp, {"band_sums_f64": n_dest * f * f * 8,
+                      "tables_int64": (2 * n_dest + n_pairs) * 8,
+                      "band_f32": pp.S * pp.m * 3 * pp.m * 4,
+                      "spikes_f32": 2 * pp.S * pp.m * pp.h * 4,
+                      "seam_blocks_f32": 3 * (n_ranks - 1) * (2 * pp.h) ** 2
+                      * 4}
+
+
+def shard_paths(dev_name):
+    """Phase 4f: z-slab domain decomposition (parallel.shard), four ranks
+    sharing the card.  The pore CLI with --shard 1 (3 carried steps); the
+    sharded carried transient at L50R5 on 4 ranks (3 steps, Newton tol
+    1e-9, Krylov 1e-10) against the single-device carried run at the same
+    tolerances (1e-6); one exact step with the replicated seam twice
+    (bitwise equal) and with seam='ring' (1e-7); BiCGStab + block-Jacobi
+    and max_retries at the (3, 40) mesh, 1 step each; _run_sharded with a
+    checkpoint directory, 2 steps then resumed to 4, against an
+    uninterrupted 4-step sharded run (equal)."""
+    from gmpnp_tpu_torch.models import pore_3d
+    from gmpnp_tpu_torch.parallel import shard
+    from gmpnp_tpu_torch.solve.timeloop import NewtonConfig
+    from gmpnp_tpu_torch.testing import rel_l2
+
+    launches = {}
+    dev = torch.device(dev_name)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", 0)
+    ranks = [dev] * SHARD_RANKS
+    tight = NewtonConfig(max_iter=50, rtol=SHARD_NEWTON_TOL,
+                         atol=SHARD_NEWTON_TOL, relaxation=0.9)
+    tight_kw = {"krylov_tol": SHARD_KRYLOV_TOL, "krylov_maxiter": 4000}
+
+    cli = importlib.import_module("gmpnp_tpu_torch.cli.pore_3d")
+    argv = [*SLICE, "--linear_refresh", "carried", "--n_steps", "3",
+            "--shard", "1", "--out_root", os.path.join(OUT, "shard_cli"),
+            "--device", dev_name]
+    launches["pore_3d --shard 1"], res, _ = shard_path(
+        "pore_3d --shard 1 carried", lambda: cli.main(argv))
+    check_outputs(res, 3, 9)
+
+    prog = pore_3d.build(_pore_cfg(refresh="carried", tol=SHARD_KRYLOV_TOL,
+                                   newton=tight), device=dev_name)
+    plan, pp, reckoned = _band_bytes_per_rank(prog, SHARD_RANKS)
+    print(f"sharded plan at N={plan.N}, {SHARD_RANKS} ranks: N_p={plan.N_p} "
+          f"H={plan.H} cells per rank={plan.cells_l.shape[1]} S={pp.S} "
+          f"m_v={pp.m_v} m={pp.m} h_v={pp.h_v} h={pp.h} pad={pp.pad}; "
+          f"reckoned bytes per rank {reckoned} (sum "
+          f"{sum(reckoned.values())})", flush=True)
+
+    def carried_run():
+        run, u0, _ = shard.make_sharded_pore_transient(
+            prog, ranks, n_steps=3, refresh="carried", **tight_kw)
+        return run(u0)
+
+    label = f"sharded carried L50R5 {SHARD_RANKS} ranks"
+    launches[label], ((u_sh, _), st), _ = shard_path(label, carried_run)
+    _, _, st1, u1 = prog.run(n_steps=3)
+    dist = rel_l2(u_sh.cpu().numpy(), u1.cpu().numpy())
+    line = (f"sharded carried vs single-device carried (3 steps, Newton tol "
+            f"{SHARD_NEWTON_TOL}): newton {np.asarray(st[0]).tolist()} vs "
+            f"{np.asarray(st1.newton_iters).tolist()}, krylov "
+            f"{np.asarray(st[3]).tolist()} vs "
+            f"{np.asarray(st1.linear_iters).tolist()}, rel_l2 {dist!r} "
+            f"(bar 1e-6)")
+    print(line, flush=True)
+    if not (np.asarray(st[1]).all() and np.asarray(st1.converged).all()
+            and dist <= 1e-6):
+        raise AssertionError(line)
+
+    prog_x = pore_3d.build(_pore_cfg(tol=SHARD_KRYLOV_TOL, newton=tight),
+                           device=dev_name)
+    exact = {}
+    for tag, seam in (("replicated", "replicated"),
+                      ("replicated again", "replicated"), ("ring", "ring")):
+        def one_step(seam=seam):
+            run, u0, _ = shard.make_sharded_pore_transient(
+                prog_x, ranks, n_steps=1, refresh="iter", seam=seam,
+                **tight_kw)
+            return run(u0)
+
+        label = f"sharded exact step L50R5 seam {tag}"
+        launches[label], ((u, _), st), _ = shard_path(label, one_step)
+        if not np.asarray(st[1]).all():
+            raise AssertionError(f"{label}: not converged")
+        exact[tag] = u
+    same = torch.equal(exact["replicated"], exact["replicated again"])
+    ring = rel_l2(exact["ring"].cpu().numpy(),
+                  exact["replicated"].cpu().numpy())
+    line = (f"sharded exact step: two replicated-seam runs bitwise equal "
+            f"{same}; ring seam {ring!r} from the replicated (bar 1e-7)")
+    print(line, flush=True)
+    if not (same and ring <= 1e-7):
+        raise AssertionError(line)
+
+    prog_m = pore_3d.build(_pore_cfg(mesh_resolution=SHARD_MID_MESH),
+                           device=dev_name)
+    mid = {}
+    for tag, kw in (("slab_direct", {}),
+                    ("bicgstab_jacobi", {"linear": "bicgstab_jacobi",
+                                         "krylov_maxiter": 20000})):
+        def one_step(kw=kw):
+            run, u0, _ = shard.make_sharded_pore_transient(
+                prog_m, ranks, n_steps=1, **kw)
+            return run(u0)
+
+        label = f"sharded exact step {SHARD_MID_MESH} {tag}"
+        launches[label], ((u, _), st), _ = shard_path(label, one_step)
+        if not np.asarray(st[1]).all():
+            raise AssertionError(f"{label}: not converged")
+        mid[tag] = u
+    dist = rel_l2(mid["bicgstab_jacobi"].cpu().numpy(),
+                  mid["slab_direct"].cpu().numpy())
+    print(f"sharded {SHARD_MID_MESH} bicgstab_jacobi vs slab_direct step: "
+          f"rel_l2 {dist!r}", flush=True)
+
+    def forced_retry():
+        # a Newton budget of 2 at tol 1e-10 fails at any dt: the step is
+        # retried once at dt/2 (the carried factors rebuilt there)
+        run, u0, _ = shard.make_sharded_pore_transient(
+            prog_m, ranks, n_steps=1, refresh="carried", newton_max_iter=2,
+            newton_rtol=1e-10, newton_atol=1e-10, max_retries=1)
+        return run(u0)
+
+    label = f"sharded max_retries {SHARD_MID_MESH}"
+    launches[label], ((u, _), st), _ = shard_path(label, forced_retry)
+    line = (f"{label}: dt_scale {np.asarray(st[4]).tolist()} converged "
+            f"{np.asarray(st[1]).tolist()}")
+    print(line, flush=True)
+    if not (np.asarray(st[4]).tolist() == [0.5]
+            and bool(torch.isfinite(u).all())):
+        raise AssertionError(line)
+
+    cfg_c = _pore_cfg()
+    prog_c = pore_3d.build(cfg_c, device=dev_name)
+    ck = os.path.join(OUT, "checkpoints", "shard")
+    runs = {}
+    for tag, n, kw in (("uninterrupted", 4, {}),
+                       ("first", 2, {"checkpoint_dir": ck,
+                                     "checkpoint_every": 1}),
+                       ("resumed", 4, {"checkpoint_dir": ck,
+                                       "checkpoint_every": 1})):
+        label = f"sharded checkpoint {tag} ({n} steps)"
+        launches[label], runs[tag], _ = shard_path(
+            label, lambda n=n, kw=kw: pore_3d._run_sharded(
+                prog_c, cfg_c, SHARD_RANKS, n_steps=n, record_stride=1,
+                devices=ranks, **kw))
+    u_full, u_res = runs["uninterrupted"][3], runs["resumed"][3]
+    if sorted(os.listdir(ck)) != ["1", "2", "3", "4"]:
+        raise AssertionError(f"checkpoints {os.listdir(ck)}")
+    line = (f"sharded checkpoint: resumed 2 + 2 steps "
+            f"({runs['resumed'][1].shape[0]} records) bitwise equal to the "
+            f"uninterrupted 4: "
+            f"{torch.equal(u_res, u_full)} (rel_l2 "
+            f"{rel_l2(u_res.cpu().numpy(), u_full.cpu().numpy())!r})")
+    print(line, flush=True)
+    if not torch.equal(u_res, u_full):
+        raise AssertionError(line)
+    return launches
+
+
 def _card_vs_cpu(label, cfg, dev_name, bar):
     """A 3-step run of a pore config on the card and on the CPU: the same
     Newton iterations, and the states within ``bar`` when one is given."""
@@ -1346,7 +1616,7 @@ def main(argv=None) -> int:
     records = check_kernels(dev)
     launches = main_path("cuda")
     for phase in (checkpoint_paths, sweep_paths, krylov_paths,
-                  newton_mode_paths):
+                  newton_mode_paths, shard_paths):
         launches.update(phase("cuda"))
     checks("cuda")
 

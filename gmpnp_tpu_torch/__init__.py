@@ -25,7 +25,8 @@ Layout
                time loop
 - ``models`` : the 3D pore (GMPNP and reaction-diffusion), the 1D EDL and
                the 1D reaction-diffusion models
-- ``parallel``: voltage and cation sweeps
+- ``parallel``: voltage and cation sweeps; z-slab domain decomposition
+               over a line of ranks (halo exchange, distributed SPIKE)
 - ``io``     : npz/metadata/VTK writers, checkpoint/resume
 - ``utils``  : step logger, phase timer, ``torch.profiler`` traces
 - ``cli``    : command-line entry points

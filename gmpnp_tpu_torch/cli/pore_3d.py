@@ -68,8 +68,13 @@ def add_common_pore_args(p):
                         "by < g (non-monotone; the production sweep rule, "
                         "solve.newton.newton_solve)")
     p.add_argument("--shard", type=int, default=None, metavar="K",
-                   help="z-slab domain decomposition over K devices (not "
-                        "yet ported: raises)")
+                   help="run z-slab-sharded over the first K CUDA devices "
+                        "(domain decomposition + distributed SPIKE solve "
+                        "— the multi-chip production path; replaces the "
+                        "reference's mpirun/PETSc layer). Identical "
+                        "outputs incl. checkpoint/resume "
+                        "(--checkpoint_dir) and dt-cut recovery; with "
+                        "--device cpu the K ranks share the host")
     p.add_argument("--linear_refresh", type=str, default=None,
                    choices=("iter", "step", "carried", "auto"),
                    help="slab-factorization refresh policy: 'iter' = exact "

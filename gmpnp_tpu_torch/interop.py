@@ -75,3 +75,18 @@ def chord_carry_from_numpy(prep, du, dt_prev, du_nrm_prev,
     return ChordCarry(prep=prep, du=_float(du, device, torch.float64),
                       dt_prev=float(np.asarray(dt_prev)),
                       du_nrm_prev=float(np.asarray(du_nrm_prev)))
+
+
+def shard_carry_from_numpy(carry_dev, carry_rep, devices):
+    """The sharded carried chord state (``parallel.shard``'s
+    ``prep_init`` output) from the reference's ``(carry_dev, carry_rep)``
+    as numpy arrays: every ``carry_dev`` leaf with a leading n_dev axis
+    (row p is rank p's), every ``carry_rep`` leaf replicated.  Returns
+    ``(dev, rep)``, per rank a tuple of its own leaves on ``devices[p]``
+    and a tuple of the replicated ones (dtypes kept, as in
+    blockell_from_numpy)."""
+    devices = [torch.device(d) for d in devices]
+    dev = [tuple(_float(np.asarray(a)[p], d) for a in carry_dev)
+           for p, d in enumerate(devices)]
+    rep = [tuple(_float(a, d) for a in carry_rep) for d in devices]
+    return dev, rep

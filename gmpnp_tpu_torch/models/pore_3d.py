@@ -19,7 +19,8 @@ only the Dirichlet BCs drive the solve; ``faithful=False`` includes the wall
 and exit fluxes (see the reference module's docstring).  The rxn-diff
 physics always includes them.
 
-Still to be ported (ROADMAP queue 1): the sharded run (``shard``).
+``run(cfg, shard=K)`` runs the transient z-slab-sharded over K ranks
+(``parallel.shard``).
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from gmpnp_tpu_torch.models import base
 from gmpnp_tpu_torch.solve.timeloop import (
     LinearConfig,
     NewtonConfig,
+    StepStats,
     calibrate_refresh,
     make_carried_step,
     make_implicit_step,
@@ -489,6 +491,126 @@ def scale_conc_time(C, grad_c, bulk, tau, D_eff, L):
     return c, t, grad_scaled
 
 
+def _sharded_stats(st):
+    """StepStats from a sharded stats tuple (4-tuple, or 5-tuple when
+    dt-cut recovery is on — see shard.make_sharded_transient)."""
+    if len(st) == 5:
+        iters, converged, resnorm, lin_iters, dt_scale = st
+    else:
+        iters, converged, resnorm, lin_iters = st
+        dt_scale = np.ones_like(resnorm)
+    return StepStats(newton_iters=iters, converged=converged,
+                     residual_norm=resnorm, linear_iters=lin_iters,
+                     dt_scale=dt_scale)
+
+
+def shard_devices(shard: int, device="cuda"):
+    """The ranks of a ``shard``-way run on ``device``: the first ``shard``
+    CUDA devices (ValueError when there are fewer), or ``shard`` ranks
+    sharing the host for ``device='cpu'``."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < shard:
+            raise ValueError(
+                f"shard={shard} needs {shard} CUDA devices, have {have}; "
+                f"pass device='cpu' to run the ranks on the host")
+        return [torch.device("cuda", i) for i in range(shard)]
+    return [device] * shard
+
+
+def _run_sharded(prog: Pore3DProgram, cfg: Pore3DConfig, shard: int,
+                 n_steps: Optional[int], record_stride: int,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 100, devices=None):
+    """Sharded-transient analogue of Pore3DProgram.run: same
+    (u0, u_hist, stats, u_final) contract, computed over ``shard`` ranks
+    (parallel.shard), by default on the devices of
+    :func:`shard_devices` for ``prog.device``; ``devices`` puts the ranks
+    elsewhere (several ranks may share one card).
+
+    dt-cut recovery follows the single-device auto rule (cfg.dt_retries:
+    3 for full-length runs, 0 for short windows); refresh='auto' resolves
+    statically to 'carried'.  checkpoint_dir enables chunked
+    checkpointing with automatic resume: the transient runs in
+    ``checkpoint_every``-step chunks, saving the GLOBAL (vertex-order)
+    solution between chunks — checkpoints are therefore interchangeable
+    with single-device ones (same layout; the carried SPIKE factorization
+    is derived data and is rebuilt at each chunk start).  Chunked
+    histories record every step (stride 1)."""
+    from gmpnp_tpu_torch.parallel.shard import make_sharded_pore_transient
+
+    devices = (shard_devices(shard, prog.device) if devices is None
+               else [torch.device(d) for d in devices])
+
+    if len(devices) != shard:
+        raise ValueError(f"shard={shard} needs {shard} devices, got "
+                         f"{len(devices)}")
+    # the form's constants live on its program's device: ranks on other
+    # devices get a program of their own
+    def canon(d):       # 'cuda' and 'cuda:<current>' are one device
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+
+    progs = {canon(prog.device): prog}
+    for d in devices:
+        if canon(d) not in progs:
+            progs[canon(d)] = build(cfg, device=d)
+    forms = [progs[canon(d)].form for d in devices]
+    n = prog.num_steps if n_steps is None else n_steps
+    if cfg.linear.refresh == "auto":
+        # sharded runs resolve 'auto' statically to 'carried' (the
+        # distributed chord keeps the SPIKE factors as carry leaves); the
+        # timed calibration targets the single-device slab path
+        cfg = dataclasses.replace(cfg, linear=dataclasses.replace(
+            cfg.linear, refresh="carried"))
+    retries = cfg.dt_retries
+    if retries is None:
+        retries = 3 if n_steps is None else 0
+    u0 = prog.initial_state()
+    kw = dict(refresh=cfg.linear.refresh, max_retries=retries, forms=forms)
+
+    if checkpoint_dir is None:
+        run_s, u0_sharded, _plan = make_sharded_pore_transient(
+            prog, devices, n_steps=n, record_stride=record_stride, **kw)
+        (u_final, _), (u_hist, st) = run_s(u0_sharded)
+        return u0, u_hist, _sharded_stats(st), u_final
+
+    ckpt = TransientCheckpointer(checkpoint_dir, cfg=cfg)
+    start, u_cur, extra = 0, u0, 0.0
+    latest = ckpt.latest(device=devices[0])
+    if latest is not None:
+        start, (u_cur, extra) = latest
+    if start >= n:
+        # resumed at completion: the final state is the single history
+        # record (mirrors Pore3DProgram.run)
+        return u0, u_cur[None], None, u_cur
+
+    runs = {}       # chunk length -> (run, plan)
+    hist_chunks, stat_chunks = [], []
+    i = start
+    while i < n:
+        k = min(checkpoint_every, n - i)
+        if k not in runs:
+            run_k, _u0, plan = make_sharded_pore_transient(
+                prog, devices, n_steps=k, record_stride=1, **kw)
+            runs[k] = (run_k, plan)
+        run_k, plan = runs[k]
+        u_pad = torch.as_tensor(plan.localize(u_cur.cpu().numpy()))
+        u_sh = [b.to(d) for b, d in zip(u_pad.chunk(shard), devices)]
+        # restored extra and the ABSOLUTE step index go into the chunk,
+        # so theta sees the same values as an unchunked run
+        (u_cur, extra), (u_hist_k, st_k) = run_k(u_sh, extra, i)
+        hist_chunks.append(u_hist_k.cpu())
+        stat_chunks.append(st_k)
+        i += k
+        ckpt.save(i, (u_cur, extra))
+    u_hist = torch.cat(hist_chunks)
+    st = tuple(np.concatenate(cols) for cols in zip(*stat_chunks))
+    return u0, u_hist, _sharded_stats(st), u_cur
+
+
 def run(cfg: Pore3DConfig, out_root: Optional[str] = None,
         write: bool = True, n_steps: Optional[int] = None,
         write_vtk: bool = True, verbose: bool = False,
@@ -503,11 +625,18 @@ def run(cfg: Pore3DConfig, out_root: Optional[str] = None,
 
     record_stride=None (default) bounds the recorded history to ~1000
     snapshots for long runs (base.auto_record_stride); a checkpointed run
-    records every step.  verbose prints per-step lines (utils.StepLogger)."""
+    records every step.  verbose prints per-step lines (utils.StepLogger).
+
+    shard=K runs the transient z-slab-sharded over K ranks
+    (parallel.shard.make_sharded_pore_transient: halo exchange, psum
+    reductions, distributed SPIKE direct solve, cfg.linear.refresh
+    honored including 'carried'), with identical output artifacts: on
+    ``device='cuda'`` the ranks are the first K CUDA devices (ValueError
+    when there are fewer), on ``device='cpu'`` K ranks share the host.
+    Sharded runs support checkpoint/resume (global-layout checkpoints,
+    interchangeable with the single-device path) and dt-cut recovery."""
     if shard is not None:
-        raise NotImplementedError(
-            "shard: z-slab domain decomposition is still to be ported "
-            "(ROADMAP queue 1 item 14)")
+        shard_devices(shard, device)      # refuse before building
     prog = build(cfg, device=device)
     if record_stride is None:
         record_stride = base.auto_record_stride(
@@ -516,10 +645,17 @@ def run(cfg: Pore3DConfig, out_root: Optional[str] = None,
         # the checkpointed transient records every step inside its chunks;
         # keep the time-axis bookkeeping consistent with the recorded rows
         record_stride = 1
-    u0, u_hist, stats, u_final = prog.run(
-        n_steps=n_steps, record_stride=record_stride,
-        checkpoint_dir=checkpoint_dir,
-        checkpoint_every=checkpoint_every)
+    if shard is not None:
+        u0, u_hist, stats, u_final = _run_sharded(
+            prog, cfg, shard, n_steps=n_steps,
+            record_stride=record_stride,
+            checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every)
+    else:
+        u0, u_hist, stats, u_final = prog.run(
+            n_steps=n_steps, record_stride=record_stride,
+            checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every)
     if verbose and stats is not None:
         from gmpnp_tpu_torch.utils import StepLogger
         StepLogger(every=max(1, u_hist.shape[0] // 50)).log_run(

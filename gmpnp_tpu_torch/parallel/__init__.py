@@ -1,8 +1,12 @@
-"""Parallelism: parameter sweeps over voltage (and cation) lanes.
+"""Parallelism: parameter sweeps over voltage (and cation) lanes, and z-slab
+domain decomposition.
 
-Port of the sweep half of ``gmpnp_tpu.parallel``; z-slab domain
-decomposition (``gmpnp_tpu/parallel/shard.py``) is still to be ported
-(ROADMAP queue 1).
+Port of ``gmpnp_tpu.parallel``:
+- ``sweep``: lanes run one after another on a card, or lane blocks on a
+  list of devices;
+- ``shard``: z-slab partition of the pore over a line of ranks (one
+  process, one rank per entry of a device list) with ppermute halo
+  exchange, psum reductions and a distributed SPIKE direct solver.
 """
 
 from gmpnp_tpu_torch.parallel.sweep import (
@@ -11,10 +15,22 @@ from gmpnp_tpu_torch.parallel.sweep import (
     run_pore_voltage_cation_sweep,
     run_pore_voltage_sweep,
 )
+from gmpnp_tpu_torch.parallel.shard import (
+    SlabPrecondPlan,
+    ZShardPlan,
+    make_sharded_pore_transient,
+    make_sharded_step,
+    make_sharded_transient,
+)
 
 __all__ = [
     "run_edl_voltage_sweep",
     "run_lanes_on_devices",
     "run_pore_voltage_cation_sweep",
     "run_pore_voltage_sweep",
+    "SlabPrecondPlan",
+    "ZShardPlan",
+    "make_sharded_pore_transient",
+    "make_sharded_step",
+    "make_sharded_transient",
 ]

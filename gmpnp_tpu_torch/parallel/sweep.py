@@ -56,10 +56,14 @@ def _run_lanes(single: Callable, volts: Sequence[float], device):
 
 
 def _default_devices():
-    if torch.cuda.is_available():
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    return [torch.device("cpu")]
+    """Every CUDA device; ValueError when there is none (a CPU run passes
+    ``devices=`` itself)."""
+    if not torch.cuda.is_available():
+        raise ValueError("run_lanes_on_devices: no CUDA devices; pass "
+                         "devices= (e.g. ['cpu']) to run the lanes on the "
+                         "host")
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
 
 
 def run_lanes_on_devices(single_on: Callable, volts: Sequence[float],

@@ -100,8 +100,8 @@ CLIS = ["pore_3d", "rxn_diff_3d", "edl_1d", "rxn_diff_1d", "stern",
 
 
 # modules no CLI imports
-MODULES = ["io.checkpoint", "parallel", "parallel.sweep", "solve.amg",
-           "utils", "utils.logging", "utils.profiling"]
+MODULES = ["io.checkpoint", "parallel", "parallel.shard", "parallel.sweep",
+           "solve.amg", "utils", "utils.logging", "utils.profiling"]
 
 
 def test_cli_import_loads_no_jax():

@@ -185,6 +185,17 @@ def test_ragged_lanes_raise():
                                    devices=["cpu", "cpu"])
 
 
+def test_default_devices_refuse_the_host(monkeypatch):
+    """Without a CUDA device the default device list raises instead of
+    running the lanes on the CPU; callers that want the CPU pass
+    ``devices=``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="no CUDA devices"):
+        sweep._default_devices()
+    with pytest.raises(ValueError, match="no CUDA devices"):
+        sweep.run_lanes_on_devices(lambda dev: None, [-0.5])
+
+
 def test_refresh_auto_resolved_at_sweep_entry():
     """ROADMAP queue 3 item 3: the reference's sweep raises deep inside
     make_linear_solver for refresh='auto'; the port calibrates first."""
