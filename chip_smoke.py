@@ -8,11 +8,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 2. build: the CUDA kernels compiled from ``gmpnp_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of every path of phase 4 (the L=50 nm, R=5 nm pore: N=2,501,
-   K=15, f=9 for GMPNP, the f=9 kernel, and f=7 for reaction-diffusion,
-   the generic-f kernel; the 1D EDL model at L_n=50 um: N=5,991, K=3, f=7;
-   the pore's first AMG coarse level: N=98, K=15, f=9, f32 and f64)
-   and at an edge shape (N=1,000, K=7, f=3), in turns (plain, kernel,
-   kernel, plain): median times over 30
+   K=15, f=9 for GMPNP and f=7 for reaction-diffusion, each on the kernel
+   with a warp per vertex written for its f; the 1D EDL model at L_n=50
+   um: N=5,991, K=3, f=7, the f=7 kernel with a thread per row; the
+   pore's first AMG coarse level: N=98, K=15, f=9, f32 and f64) and at an
+   edge shape (N=1,000, K=7, f=3, the run-time-f kernel), in turns
+   (plain, kernel, kernel, plain): median times over 30
    CUDA-event-timed calls (host launch cost included); device time per
    call from a replayed CUDA graph, hot (one matrix, re-read from L2) and
    cold (each launch reads another copy of the matrix, at least 256 MB of
@@ -20,8 +21,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    computed from the shapes and the share of it the cold time reaches; one
    library call (``torch.sparse_bsr_tensor @ x``) timed the same way as a
    yardstick; the device time of a one-tile launch as the floor; and
-   ragged, single-neighbour and misaligned shapes for correctness and
-   bitwise repeatability only;
+   ragged, single-neighbour and misaligned shapes (f=5 and f=7 at K=3 and
+   K=15 among them) for correctness and bitwise repeatability only;
 4. the paths, each with every launch count set to 0 before it and read
    after it; per-step wall time, Newton and linear iterations, host syncs
    and kernel launches; outputs present and finite:
@@ -98,11 +99,12 @@ busy share and its largest kernels.
 
     python3 chip_smoke.py --kernel-times [--package-root DIR]
 
-runs phases 1-2 and the timings of phase 3 at the main path's shape only,
-with ``gmpnp_tpu_torch`` taken from DIR (default: beside this script).  To
-compare two commits on one card, unpack the other one with ``git archive``
-into an ignored directory and run on the card, one after the other: other,
-this, this, other.
+runs phases 1-2 and the timings of phase 3 at the paths' shapes (every
+record of the kernels line: f=9, f=7 and the AMG coarse level), without
+the library call, with ``gmpnp_tpu_torch`` taken from DIR (default:
+beside this script).  To compare two commits on one card, unpack the
+other one with ``git archive`` into an ignored directory and run on the
+card, one after the other: other, this, this, other.
 """
 
 import argparse
@@ -340,6 +342,16 @@ KERNEL_RECORDS = [
 ]
 
 
+def path_shapes(dev):
+    """(phase-3 label, adjacency, f, dtype) of every KERNEL_RECORDS entry."""
+    adjs = {"slice": slice_adj(dev), "edl_1d": edl_adj(dev),
+            "amg_coarse": amg_coarse_adj(dev)}
+    adjs["rxn_diff_3d"] = adjs["slice"]
+    widths = {"slice": 9, "rxn_diff_3d": 7, "edl_1d": 7, "amg_coarse": 9}
+    return [(label, adjs[label], widths[label], dtype)
+            for _, label, dtype, _ in KERNEL_RECORDS]
+
+
 def random_operands(rng, adj, f, dtype, offset=0):
     """flat and x for an adjacency, from the seeded generator; ``offset``
     shifts flat's pointer by that many elements (a contiguous view that is
@@ -390,31 +402,34 @@ def check_kernels(dev):
         print(f"kernel ell_spmv launch floor N=4 K=1 f=1 {dtype}: "
               f"device_us={floor[dtype]!r}", flush=True)
 
+    from gmpnp_tpu_torch.ops.ell_spmv import MODE_NAMES, launch_plan
+
     records = {}
-    both = (torch.float32, torch.float64)
-    pore = slice_adj(dev)
-    for label, adj, f, dtypes in (("slice", pore, 9, both),
-                                  ("rxn_diff_3d", pore, 7, both),
-                                  ("edl_1d", edl_adj(dev), 7,
-                                   (torch.float64,)),
-                                  ("amg_coarse", amg_coarse_adj(dev), 9,
-                                   both),
-                                  ("edge", random_adj(1000, 7), 3, both)):
-        for dtype in dtypes:
-            flat, x = random_operands(rng, adj, f, dtype)
-            rel, err = compare(label, flat, adj, x)
-            rec = kernel_times(label, flat, adj, x)
-            print(f"  rel_l2={rel!r} max_abs_err={err!r}", flush=True)
-            if label != "edge":
-                records[label, dtype] = {
-                    "shape": [adj.shape[0], adj.shape[1], f],
-                    "max_abs_err": err, **rec, "floor_us": floor[dtype]}
+    for label, adj, f, dtype in path_shapes(dev) + [
+            ("edge", random_adj(1000, 7), 3, dt)
+            for dt in (torch.float32, torch.float64)]:
+        flat, x = random_operands(rng, adj, f, dtype)
+        rel, err = compare(label, flat, adj, x)
+        rec = kernel_times(label, flat, adj, x)
+        plan = launch_plan(f, adj.shape[1], flat.element_size())
+        print(f"  rel_l2={rel!r} max_abs_err={err!r} plan={plan}",
+              flush=True)
+        if label != "edge":
+            records[label, dtype] = {
+                "shape": [adj.shape[0], adj.shape[1], f],
+                "plan": {"mode": MODE_NAMES[plan.mode],
+                         "lanes_per_vertex": plan.lanes,
+                         "tile": plan.tile},
+                "max_abs_err": err, **rec, "floor_us": floor[dtype]}
 
     # correctness and repeatability only: ragged last tiles, one neighbour,
-    # widths on both kernels, and a matrix that is not 16-byte aligned
+    # widths on every kernel (f=5 and f=7 at the 1D meshes' K=3 and the
+    # pores' K=15), and a matrix that is not 16-byte aligned
     shapes = [(N, 1, f) for N in (1, 3, 4, 5) for f in (1, 8, 9)]
+    shapes += [(N, K, f) for N in (1, 3, 5, 53) for K in (3, 15)
+               for f in (5, 7)]
     shapes += [(53, 15, 8), (130, 31, 9), (2501, 15, 9), (1000, 7, 3),
-               (2501, 15, 7), (5991, 3, 7), (5991, 3, 5)]
+               (2501, 15, 7), (2501, 15, 5), (5991, 3, 7), (5991, 3, 5)]
     worst = {torch.float32: 0.0, torch.float64: 0.0}
     for N, K, f in shapes:
         adj = random_adj(N, K)
@@ -431,12 +446,11 @@ def check_kernels(dev):
 
 
 def kernel_times_only(dev):
-    """--kernel-times: the main path's shape, both types, no library call."""
+    """--kernel-times: the paths' shapes, no library call."""
     rng = np.random.default_rng(2024)
-    adj = slice_adj(dev)
-    for dtype in (torch.float32, torch.float64):
-        flat, x = random_operands(rng, adj, 9, dtype)
-        kernel_times("slice", flat, adj, x, library=False)
+    for label, adj, f, dtype in path_shapes(dev):
+        flat, x = random_operands(rng, adj, f, dtype)
+        kernel_times(label, flat, adj, x, library=False)
 
 
 @contextlib.contextmanager

@@ -21,11 +21,10 @@
 //
 // Design.  A vertex's block row is one contiguous run of f*K*f values.  One
 // block of 128 threads owns a tile of `tile` consecutive vertices, chosen by
-// the wrapper (ops/ell_spmv.py::tile_vertices) so that tile*f*K*f*sizeof(T)
-// is a multiple of 16 bytes and every warp has a vertex (at f=9, K=15 a row
-// is 4,860 B in f32 and 9,720 B in f64, multiples of 4 and 8 only: tiles of
-// 4 vertices in both types).  Then every tile starts on a 16-byte boundary
-// and
+// the wrapper (ops/ell_spmv.py::launch_plan) so that tile*f*K*f*sizeof(T)
+// is a multiple of 16 bytes (at f=9, K=15 a row is 4,860 B in f32 and 9,720
+// B in f64, multiples of 4 and 8 only: tiles of 4 vertices in both types).
+// Then every tile starts on a 16-byte boundary and
 //   1. thread 0 issues ONE 1D bulk copy (cp.async.bulk, completion counted
 //      on an mbarrier) of the whole tile into shared memory: coalesced by
 //      construction, no registers or address arithmetic spent on it, and
@@ -33,32 +32,45 @@
 //      resident in one wave the whole matrix is requested at once;
 //   2. while it flies, the block gathers x[adj[n, :]] once per vertex into
 //      shared memory (K*f values; x is 90-180 KB and sits in L1/L2);
-//   3. f == 9 (the pore's 8 species + potential): one warp per vertex keeps
-//      the 9 row sums in registers, lanes stride the K*f columns (bank-
-//      conflict free), the 9 loads of an iteration are independent, and a
-//      butterfly of shuffles finishes each row.  Any other f: one warp per
-//      output row, same lane stride, same butterfly.
+//   3. the sums, in one of three modes (the wrapper picks one per f and K):
+//      - kVertexWarp, f in {5, 7, 9} known at compile time: one warp per
+//        vertex keeps the f row sums in registers, lanes stride the K*f
+//        columns (bank-conflict free) and the f loads of an iteration are
+//        independent.  At f=9 a butterfly of shuffles finishes each row;
+//        at f=5 and f=7 (K*f >= 33: the 3D reaction-diffusion pore's 105)
+//        a folding reduction does: lanes 16, 8 and 4 apart swap half of
+//        their (up to 8) sums and add the half they keep, then a butterfly
+//        over 2 and 1 finishes one row per group of 4 lanes: 9 dependent
+//        shuffles for all rows, not f butterflies of 5;
+//      - kRowThread, f in {5, 7} with K*f <= 32 (the 1D meshes' K=3: 21
+//        and 15 values): one thread per output row sums its K*f products
+//        in one FMA chain, no shuffle; a tile holds as many vertices as
+//        128 threads have rows.  The row stride K*f is odd, so the
+//        threads of a warp read distinct banks (f32) or bank pairs (f64);
+//      - kRowWarp, any other f (at run time): one warp per output row,
+//        the same lane stride, one butterfly per row.
 // The ragged last tile (N % tile vertices, a size that need not be a
 // multiple of 16 bytes) bulk-copies its 16-byte chunks and moves the
 // remainder with element-sized cp.async; a matrix whose base pointer is
 // not 16-byte aligned (a view with a storage offset) or a tile size the
 // wrapper could not align goes through element-sized cp.async entirely.
-// Tried on the card against this: per-thread 16-byte cp.async over the
-// same tiles (a little slower in both types), 256 threads or larger tiles
-// (fewer blocks in flight: slower), and f64 tiles of 2 vertices (slower
-// than 4: two of the four warps have no vertex).
+// Tried on the card against this at f=9: per-thread 16-byte cp.async over
+// the same tiles (a little slower in both types), 256 threads or larger
+// tiles (fewer blocks in flight: slower), and f64 tiles of 2 vertices
+// (slower than 4: two of the four warps have no vertex).
 //
-// The order of summation is fixed (register loop, then xor-butterfly): no
-// atomics, two launches give the same bits.  Products and sums stay in the
-// working type (FMA).  No tensor cores: a 9-wide block times one vector has
-// no reuse to feed wgmma, TF32 would break the f32 parity bands, and the
-// kernel is bound by bytes, not operations.
+// The order of summation is fixed (register loops, then shuffles in a set
+// pattern): no atomics, two launches give the same bits.  Products and
+// sums stay in the working type (FMA).  No tensor cores: a 9-wide block
+// times one vector has no reuse to feed wgmma, TF32 would break the f32
+// parity bands, and the kernel is bound by bytes, not operations.
 //
 // Padded ELL slots alias the row's own vertex with zero blocks and need no
 // special case.  The kernel launches on the caller's stream, does not
 // synchronise and allocates nothing; the C entry points return
 // cudaGetLastError() (or the error of cudaFuncSetAttribute where a tile
-// needs more than 48 KB of shared memory).
+// needs more than 48 KB of shared memory), and cudaErrorInvalidValue for a
+// mode that has no kernel at that f.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -67,6 +79,10 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+// the modes of ops/ell_spmv.py::launch_plan
+enum Mode { kRowWarp = 0, kVertexWarp = 1, kRowThread = 2 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -88,18 +104,48 @@ template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
+    v += __shfl_xor_sync(kFull, v, off);
   return v;
 }
 
-// F > 0: f known at compile time (one warp per vertex, F sums in
-// registers); F == 0: f at run time (one warp per output row).
+// One folding step of warp_sum_rows: lanes 4*HALF apart swap HALF of their
+// 2*HALF sums; each keeps the half its lane bit selects and adds the
+// partner's copy of it.
+template <int HALF, typename T>
+__device__ __forceinline__ void fold(T (&v)[8], int lane) {
+  const bool upper = lane & (4 * HALF);
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const T send = upper ? v[i] : v[i + HALF];
+    const T keep = upper ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(kFull, send, 4 * HALF);
+  }
+}
+
+// The warp's sums of F <= 8 rows, each held as 32 per-lane partial sums:
+// lane l returns the whole sum of row l / 4 (rows >= F are zero).
+template <int F, typename T>
+__device__ __forceinline__ T warp_sum_rows(const T (&acc)[F], int lane) {
+  static_assert(F <= 8, "warp_sum_rows folds at most 8 rows");
+  T v[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) v[r] = r < F ? acc[r] : T(0);
+  fold<4>(v, lane);
+  fold<2>(v, lane);
+  fold<1>(v, lane);
+  v[0] += __shfl_xor_sync(kFull, v[0], 2);
+  v[0] += __shfl_xor_sync(kFull, v[0], 1);
+  return v[0];
+}
+
+// F > 0: f known at compile time; F == 0: f at run time (kRowWarp only).
 // aligned != 0: every tile starts on a 16-byte boundary.
-template <typename T, int F>
+template <typename T, int F, int MODE>
 __global__ void __launch_bounds__(kThreads)
 ell_spmv_kernel(const T* __restrict__ flat, const int* __restrict__ adj,
                 const T* __restrict__ x, T* __restrict__ y,
                 int N, int K, int f_rt, int tile, int aligned) {
+  static_assert(MODE == kRowWarp || F > 0, "vertex modes need f fixed");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(8) unsigned long long bar;
   constexpr int kPer16 = 16 / static_cast<int>(sizeof(T));
@@ -140,14 +186,28 @@ ell_spmv_kernel(const T* __restrict__ flat, const int* __restrict__ adj,
     cp_async_elem(a_s + i, src + i);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 
-  // gather x[adj[n, :]] once per vertex while the matrix is in flight
-  for (int i = tid; i < nv * Kf; i += kThreads) {
-    const int v = i / Kf;
-    const int j = i - v * Kf;
-    const int k = j / f;
-    const int c = j - k * f;
-    const int nb = adj[static_cast<size_t>(n0 + v) * K + k];
-    xg_s[i] = x[static_cast<size_t>(nb) * f + c];
+  // gather x[adj[n, :]] once per vertex while the matrix is in flight:
+  // value i of the tile is x[adj[n0 + i / Kf, (i % Kf) / f], i % f], and
+  // (n0 + i / Kf) * K + (i % Kf) / f = n0 * K + i / f.  At f=5 and f=7 a
+  // tile's copy is short, so a thread issues the loads of kBatch values
+  // before it waits on any (adj, then x, then the stores).
+  constexpr int kBatch = (F == 5 || F == 7) ? 4 : 1;
+  const int* adj_t = adj + static_cast<size_t>(n0) * K;
+  const int ng = nv * Kf;
+  for (int i0 = tid; i0 < ng; i0 += kThreads * kBatch) {
+    int at[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int i = i0 + b * kThreads;
+      const int q = i / f;
+      at[b] = i < ng ? adj_t[q] * f + (i - q * f) : -1;
+    }
+    T xv[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) xv[b] = at[b] >= 0 ? x[at[b]] : T(0);
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+      if (at[b] >= 0) xg_s[i0 + b * kThreads] = xv[b];
   }
 
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -163,7 +223,7 @@ ell_spmv_kernel(const T* __restrict__ flat, const int* __restrict__ adj,
     }
   }
 
-  if constexpr (F > 0) {
+  if constexpr (MODE == kVertexWarp) {
     for (int v = warp; v < nv; v += kWarps) {
       const T* a = a_s + v * row_len;
       const T* xs = xg_s + v * Kf;
@@ -175,13 +235,27 @@ ell_spmv_kernel(const T* __restrict__ flat, const int* __restrict__ adj,
 #pragma unroll
         for (int r = 0; r < F; ++r) acc[r] = fma(a[r * Kf + j], xv, acc[r]);
       }
+      T* yv = y + static_cast<size_t>(n0 + v) * F;
+      if constexpr (F == 9) {
 #pragma unroll
-      for (int r = 0; r < F; ++r) acc[r] = warp_sum(acc[r]);
-      T out = acc[0];
+        for (int r = 0; r < F; ++r) acc[r] = warp_sum(acc[r]);
+        T out = acc[0];
 #pragma unroll
-      for (int r = 1; r < F; ++r)
-        if (lane == r) out = acc[r];
-      if (lane < F) y[static_cast<size_t>(n0 + v) * F + lane] = out;
+        for (int r = 1; r < F; ++r)
+          if (lane == r) out = acc[r];
+        if (lane < F) yv[lane] = out;
+      } else {
+        const T out = warp_sum_rows<F>(acc, lane);
+        if ((lane & 3) == 0 && (lane >> 2) < F) yv[lane >> 2] = out;
+      }
+    }
+  } else if constexpr (MODE == kRowThread) {
+    for (int row = tid; row < nv * F; row += kThreads) {
+      const T* a = a_s + row * Kf;
+      const T* xs = xg_s + row / F * Kf;
+      T acc = T(0);
+      for (int j = 0; j < Kf; ++j) acc = fma(a[j], xs[j], acc);
+      y[static_cast<size_t>(n0) * F + row] = acc;
     }
   } else {
     const int rows = nv * f;
@@ -196,7 +270,7 @@ ell_spmv_kernel(const T* __restrict__ flat, const int* __restrict__ adj,
   }
 }
 
-template <typename T, int F>
+template <typename T, int F, int MODE>
 int launch_f(const void* flat, const void* adj, const void* x, void* y,
              int N, int K, int f, int tile, void* stream) {
   constexpr long long kPer16 = 16 / sizeof(T);
@@ -206,7 +280,7 @@ int launch_f(const void* flat, const void* adj, const void* x, void* y,
                          * static_cast<long long>(sizeof(T));
   const int aligned = reinterpret_cast<uintptr_t>(flat) % 16 == 0
                       && (tile * row_len * sizeof(T)) % 16 == 0;
-  auto kernel = ell_spmv_kernel<T, F>;
+  auto kernel = ell_spmv_kernel<T, F, MODE>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -223,22 +297,44 @@ int launch_f(const void* flat, const void* adj, const void* x, void* y,
 
 template <typename T>
 int launch(const void* flat, const void* adj, const void* x, void* y,
-           int N, int K, int f, int tile, void* stream) {
+           int N, int K, int f, int tile, int mode, void* stream) {
   if (tile < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (f == 9) return launch_f<T, 9>(flat, adj, x, y, N, K, f, tile, stream);
-  return launch_f<T, 0>(flat, adj, x, y, N, K, f, tile, stream);
+  switch (mode) {
+    case kVertexWarp:
+      if (f == 9)
+        return launch_f<T, 9, kVertexWarp>(flat, adj, x, y, N, K, f, tile,
+                                           stream);
+      if (f == 7)
+        return launch_f<T, 7, kVertexWarp>(flat, adj, x, y, N, K, f, tile,
+                                           stream);
+      if (f == 5)
+        return launch_f<T, 5, kVertexWarp>(flat, adj, x, y, N, K, f, tile,
+                                           stream);
+      break;
+    case kRowThread:
+      if (f == 7)
+        return launch_f<T, 7, kRowThread>(flat, adj, x, y, N, K, f, tile,
+                                          stream);
+      if (f == 5)
+        return launch_f<T, 5, kRowThread>(flat, adj, x, y, N, K, f, tile,
+                                          stream);
+      break;
+    case kRowWarp:
+      return launch_f<T, 0, kRowWarp>(flat, adj, x, y, N, K, f, tile, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" int ell_spmv_f32(const void* flat, const void* adj, const void* x,
-                            void* y, int N, int K, int f, int tile,
+                            void* y, int N, int K, int f, int tile, int mode,
                             void* stream) {
-  return launch<float>(flat, adj, x, y, N, K, f, tile, stream);
+  return launch<float>(flat, adj, x, y, N, K, f, tile, mode, stream);
 }
 
 extern "C" int ell_spmv_f64(const void* flat, const void* adj, const void* x,
-                            void* y, int N, int K, int f, int tile,
+                            void* y, int N, int K, int f, int tile, int mode,
                             void* stream) {
-  return launch<double>(flat, adj, x, y, N, K, f, tile, stream);
+  return launch<double>(flat, adj, x, y, N, K, f, tile, mode, stream);
 }

@@ -12,14 +12,16 @@ time is (flat + adj + x + y) bytes over the H100's 3.35 TB/s: at the 3D pore
 main path (N=2,501, K=15, f=9) 12,484,992 B = 3.73 us in f32 and 24,819,924
 B = 7.41 us in f64.  At 12-24 MB the product is over before the card's
 memory pipeline is full, so the kernel's design is about bytes in flight: one
-block per tile of vertices (``tile_vertices``: a multiple of the vertices
-whose block rows together fill whole 16-byte units, 4 at f=9, K=15 in both
-types), the tile brought into shared memory by one 1D bulk copy, ``x[adj]``
-gathered once per vertex meanwhile, row sums in registers and warp shuffles
-in a fixed order (two launches give the same bits).  Any element-aligned
-contiguous operand is taken: a view whose pointer is not 16-byte aligned
-goes through the kernel's element-sized copies.  Measured times and the
-share of the bound reached: ``PERF.md`` section 6.
+block per tile of vertices, the tile brought into shared memory by one 1D
+bulk copy, ``x[adj]`` gathered once per vertex meanwhile, row sums in
+registers and warp shuffles in a fixed order (two launches give the same
+bits).  ``launch_plan`` picks the kernel and the tile from f, K and the
+type: at f in {5, 7, 9} one warp per vertex with the f row sums in
+registers (the 3D pores), at f in {5, 7} with K*f <= 32 one thread per
+output row (the 1D meshes, K=3), at any other f one warp per output row.
+Any element-aligned contiguous operand is taken: a view whose pointer is
+not 16-byte aligned goes through the kernel's element-sized copies.
+Measured times and the share of the bound reached: ``PERF.md`` section 6.
 
 ``ell_spmv`` launches the kernel for CUDA tensors (or raises) and runs the
 plain version ``ell_spmv_reference`` for CPU tensors only.  ``LAUNCHES``
@@ -30,6 +32,7 @@ dtype name).
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -38,12 +41,26 @@ LAUNCHES = {torch.float32: 0, torch.float64: 0}
 #: kernel launches per (N, K, f, dtype name), counted at the same place
 SHAPE_LAUNCHES = {}
 
-#: warps per block in csrc/ell_spmv.cu (kWarps): a tile holds at least as
-#: many vertices, so that no warp is without one
-_WARPS = 4
+#: threads per block in csrc/ell_spmv.cu (kThreads), and its warps
+_THREADS = 128
+_WARPS = _THREADS // 32
 #: shared memory a tile (matrix rows + gathered x) may take, of the 227 KB
 #: a block can have on the H100
 _SMEM_BUDGET = 200 * 1024
+#: the kernel's modes (csrc/ell_spmv.cu, enum Mode): one warp per output
+#: row (f at run time), one warp per vertex (f in {5, 7, 9} at compile
+#: time), one thread per output row (f in {5, 7}, K*f <= 32)
+ROW_WARP, VERTEX_WARP, ROW_THREAD = 0, 1, 2
+MODE_NAMES = {ROW_WARP: "warp per row, f at run time",
+              VERTEX_WARP: "warp per vertex", ROW_THREAD: "thread per row"}
+
+
+class LaunchPlan(NamedTuple):
+    """How ``ell_spmv`` launches the kernel at one (f, K, type)."""
+
+    mode: int    # ROW_WARP, VERTEX_WARP or ROW_THREAD
+    lanes: int   # threads that share one vertex's block row
+    tile: int    # vertices per block of 128 threads
 
 
 def align_vertices(f: int, K: int, itemsize: int) -> int:
@@ -59,19 +76,40 @@ def _tile_smem(tile: int, f: int, K: int, itemsize: int) -> int:
     return (rows + tile * K * f) * itemsize
 
 
+def _mode(f: int, K: int) -> int:
+    if f in (5, 7) and K * f <= 32:
+        return ROW_THREAD
+    return VERTEX_WARP if f in (5, 7, 9) else ROW_WARP
+
+
 def tile_vertices(f: int, K: int, itemsize: int) -> int:
-    """Vertices per block of the kernel: the smallest multiple of
-    ``align_vertices`` that gives every warp a vertex.  Falls back to fewer
-    (last of all one, copied element by element) where shared memory is
-    short, and raises where even one block row does not fit."""
+    """Vertices per block of the kernel: a multiple of ``align_vertices``,
+    the smallest that gives every warp a vertex (a warp per vertex or per
+    row) or the largest whose rows the block's threads cover (a thread per
+    row).  Falls back to fewer (last of all one, copied element by element)
+    where shared memory is short, and raises where even one block row does
+    not fit."""
     align = align_vertices(f, K, itemsize)
-    most = align * -(-_WARPS // align)
+    if _mode(f, K) == ROW_THREAD:
+        most = max(align, _THREADS // f // align * align)
+    else:
+        most = align * -(-_WARPS // align)
     for tile in (*range(most, 0, -align), 1):
         if _tile_smem(tile, f, K, itemsize) <= _SMEM_BUDGET:
             return tile
     raise ValueError(
         f"ell_spmv: one block row of f={f}, K={K} "
         f"({f * K * f * itemsize} bytes) exceeds the kernel's shared memory")
+
+
+def launch_plan(f: int, K: int, itemsize: int) -> LaunchPlan:
+    """The kernel mode, the threads per vertex and the tile for one shape:
+    at the 3D pores (K=15, f=9 or 7) one warp per vertex, 4 vertices a
+    block; at the 1D meshes (K=3, f=7 or 5) one thread per output row, 16
+    to 24 vertices a block."""
+    mode = _mode(f, K)
+    lanes = {ROW_WARP: 32 * f, VERTEX_WARP: 32, ROW_THREAD: f}[mode]
+    return LaunchPlan(mode, lanes, tile_vertices(f, K, itemsize))
 
 
 def ell_spmv_reference(flat: torch.Tensor, adj: torch.Tensor,
@@ -129,13 +167,13 @@ def ell_spmv(flat: torch.Tensor, adj: torch.Tensor,
     if N == 0 or f == 0:
         return y
     K = Kf // f
-    tile = tile_vertices(f, K, flat.element_size())
+    plan = launch_plan(f, K, flat.element_size())
     lib = load_library()
     fn = lib.ell_spmv_f32 if flat.dtype == torch.float32 else lib.ell_spmv_f64
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream(flat.device).cuda_stream
         err = fn(flat.data_ptr(), adj.data_ptr(), x.data_ptr(), y.data_ptr(),
-                 N, K, f, tile, stream)
+                 N, K, f, plan.tile, plan.mode, stream)
     if err != 0:
         raise RuntimeError(f"ell_spmv kernel launch failed: CUDA error {err}")
     LAUNCHES[flat.dtype] += 1

@@ -78,14 +78,17 @@ def _operands(N, K, f, dtype, device, offset=0, seed=5):
 
 
 # ragged last tiles (N not a multiple of the tile), one neighbour, widths
-# on the f=9 kernel and on the generic one, a tile over 48 KB of shared
-# memory (K=31), each from an aligned and from a misaligned pointer
+# on every kernel (f=9; f=5 and f=7 with a warp per vertex at K=15 and a
+# thread per row at K=3, tiles of 4 and of 16-24 vertices; the run-time-f
+# one), a tile over 48 KB of shared memory (K=31), each from an aligned
+# and from a misaligned pointer
 @pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5),
                                        (np.float64, 1e-12)])
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("N,K,f", [
     (1, 1, 1), (3, 1, 9), (4, 1, 8), (5, 1, 9), (5, 1, 1), (4, 1, 9),
-    (53, 15, 8), (130, 31, 9), (2501, 15, 9)])
+    (53, 15, 8), (130, 31, 9), (2501, 15, 9)] + [
+    (N, K, f) for N in (1, 3, 5, 53) for K in (3, 15) for f in (5, 7)])
 def test_kernel_ragged_and_misaligned(cuda_device, N, K, f, offset, dtype,
                                       tol):
     flat, adj, x = _operands(N, K, f, dtype, cuda_device, offset)
@@ -102,8 +105,11 @@ def test_kernel_ragged_and_misaligned(cuda_device, N, K, f, offset, dtype,
 
 @pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5),
                                        (np.float64, 1e-12)])
-def test_kernel_on_a_side_stream(cuda_device, dtype, tol):
-    flat, adj, x = _operands(2501, 15, 9, dtype, cuda_device)
+@pytest.mark.parametrize("N,K,f", [(2501, 15, 9), (2501, 15, 7),
+                                   (2501, 15, 5), (5991, 3, 7),
+                                   (5991, 3, 5)])
+def test_kernel_on_a_side_stream(cuda_device, N, K, f, dtype, tol):
+    flat, adj, x = _operands(N, K, f, dtype, cuda_device)
     y = ell_spmv(flat, adj, x)
     torch.cuda.synchronize()
     side = torch.cuda.Stream(device=cuda_device)

@@ -30,7 +30,15 @@ Tolerances, each with its reason:
 - f32 equilibrated solves to tol 1e-6: GMRES iterations within 1 of the
   reference's and x within 1e-5 (the f32 floor).  f32 BiCGStab drifts
   faster still (84 against 157 iterations with block-Jacobi, 35 against
-  47 with SSOR): both converge, x within 1e-4, the counts are not held;
+  47 with SSOR): both converge, x within 1e-4, the counts are not held.
+  The drift is rounding, not another operation: on bitwise-equal f32
+  inputs the port's residual norms after 0-5 iterations and its fifth
+  iterate lie within 1e-6 of the reference's (read from
+  ``goldens/torch_bicgstab_f32.json``; measured <= 6.5e-7 and <= 3.2e-7,
+  a few units of f32 rounding), and the residual norms' gap then grows
+  3-10x per iteration through the stagnating middle phase (1e-5 by
+  iteration 7-11, 1e-3 by 15-16, 1e-2 to 2.4 by 19-20; the test prints
+  it), so the two runs reach the tolerance at different counts;
 - ``make_linear_solver`` on a 1D 2-field system (31 vertices): the dense
   solve at rtol 1e-7 (f64 to tol 1e-10; the reference's tests/test_amg.py
   bar) and 1e-3 relative L2 (f32 to tol 1e-4: f32 GMRES stalls near 1e-5
@@ -67,6 +75,12 @@ from gmpnp_tpu_torch.testing import rel_l2  # noqa: E402
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens",
                       "torch_krylov.json")
+HISTORY_GOLDEN = os.path.join(os.path.dirname(GOLDEN),
+                              "torch_bicgstab_f32.json")
+#: f32 BiCGStab iterations held to HISTORY_GOLDEN, and the iterations
+#: whose residual norms it records (printed beside the port's)
+HISTORY_ITERS = 5
+HISTORY_PRINTED = 20
 F = 3
 KINDS = ("gmres", "bicgstab")
 PRECONDS = ("block_jacobi", "ssor", "amg")
@@ -134,6 +148,36 @@ def write_golden():
     out = {f"{k}/{p}/{d}": _reference_solve(ell, sp, plan, rhs, k, p, d)
            for k in KINDS for p in PRECONDS for d in TOL}
     with open(GOLDEN, "w") as fh:
+        json.dump(out, fh)
+
+
+def write_history_golden():
+    """The reference's f32 BiCGStab on the equilibrated system: residual
+    norms after 0..HISTORY_PRINTED iterations, and x after
+    HISTORY_ITERS."""
+    import jax
+    import jax.numpy as jnp
+    from gmpnp_tpu.fem.assembly import BlockELL
+    from gmpnp_tpu.solve.smallblock import block_inv as jblock_inv
+
+    sp, ell, rhs, _ = _reference_system()
+    Dinv = jblock_inv(ell.diag_blocks())
+    ell = ell.scale_rows(Dinv)
+    ell = BlockELL(ell.adj, ell.flat.astype(jnp.float32), ell.diag_slot)
+    b = jnp.einsum("nfg,ng->nf", Dinv, jnp.asarray(rhs)).astype(jnp.float32)
+    out = {}
+    for precond in ("block_jacobi", "ssor"):
+        pc = (jlin.block_jacobi_preconditioner(ell) if precond ==
+              "block_jacobi" else
+              jlin.multicolor_ssor_preconditioner(ell, sp.colors))
+        run = jax.jit(lambda v, m, pc=pc: jlin.bicgstab(
+            ell.matvec, v, Minv=pc, tol=TOL["f32"], maxiter=m))
+        res = [run(b, m) for m in range(HISTORY_PRINTED + 1)]
+        out[precond] = {
+            "resnorm": [float(r.resnorm) for r in res],
+            "x": np.asarray(res[HISTORY_ITERS].x,
+                            np.float64).reshape(-1).tolist()}
+    with open(HISTORY_GOLDEN, "w") as fh:
         json.dump(out, fh)
 
 
@@ -241,6 +285,40 @@ def test_krylov_matches_reference(system, kind, precond, dtype):
     assert err < (1e-10 if dtype == "f64" else 1e-5), err
 
 
+@pytest.mark.parametrize("precond", ["block_jacobi", "ssor"])
+def test_bicgstab_f32_first_iterations_match_reference(system, precond):
+    """f32 BiCGStab's iteration-count gap is rounding: on the same f32
+    inputs (bitwise), the port's first HISTORY_ITERS residual norms and
+    its iterate after them are the reference's to within f32 rounding
+    (1e-6)."""
+    with open(HISTORY_GOLDEN) as fh:
+        ref = json.load(fh)[precond]
+    tell = system["tell"]
+    Dinv = block_inv(tell.diag_blocks())
+    tell = tell.scale_rows(Dinv)
+    tell = tfem.BlockELL(tell.adj, tell.flat.to(torch.float32),
+                         tell.diag_slot)
+    b = torch.einsum("nfg,ng->nf", Dinv,
+                     torch.tensor(system["rhs"])).to(torch.float32)
+    pc = _port_precond(tell, system["sp"].colors, None, precond)
+    gaps = []
+    for m in range(HISTORY_PRINTED + 1):
+        res = tlin.bicgstab(tell.matvec, b, Minv=pc, tol=TOL["f32"],
+                            maxiter=m)
+        assert res.iters == m
+        gaps.append(abs(res.resnorm - ref["resnorm"][m])
+                    / ref["resnorm"][m])
+        if m == HISTORY_ITERS:
+            err = rel_l2(res.x.to(torch.float64).numpy().reshape(-1),
+                         np.asarray(ref["x"]))
+    print(f"{precond}: x after {HISTORY_ITERS} iterations {err:.3e} from "
+          f"the reference's; residual norms' relative gap after 0.."
+          f"{HISTORY_PRINTED} iterations: "
+          + " ".join(f"{g:.1e}" for g in gaps))
+    assert max(gaps[:HISTORY_ITERS + 1]) <= 1e-6, gaps
+    assert err <= 1e-6, err
+
+
 def _port_linear_system(f=2, n=30):
     """tests/test_amg.py::test_amg_precond_through_linear_config's system,
     built by the port."""
@@ -320,3 +398,5 @@ if __name__ == "__main__":
     jax.config.update("jax_enable_x64", True)
     write_golden()
     print(f"wrote {GOLDEN}")
+    write_history_golden()
+    print(f"wrote {HISTORY_GOLDEN}")

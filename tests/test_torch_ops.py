@@ -25,8 +25,13 @@ from gmpnp_tpu.solve.linear import gmres as jgmres  # noqa: E402
 from gmpnp_tpu_torch.interop import blockell_from_numpy  # noqa: E402
 from gmpnp_tpu_torch.ops import LAUNCHES, ell_spmv  # noqa: E402
 from gmpnp_tpu_torch.ops.ell_spmv import (  # noqa: E402
+    ROW_THREAD,
+    ROW_WARP,
+    VERTEX_WARP,
+    _tile_smem,
     align_vertices,
     ell_matvec,
+    launch_plan,
     tile_vertices,
 )
 from gmpnp_tpu_torch.solve.linear import gmres as tgmres  # noqa: E402
@@ -46,7 +51,8 @@ def _random_ell(N, K, f, dtype, seed):
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("N,K,f", [(50, 4, 3), (200, 16, 9), (5, 1, 9),
-                                   (53, 15, 8)])
+                                   (53, 15, 8), (60, 15, 7), (61, 3, 7),
+                                   (61, 3, 5), (59, 15, 5)])
 def test_plain_version_matches_pallas_and_dispatch(N, K, f, dtype):
     blocks, adj, x, flat = _random_ell(N, K, f, dtype, N + K + f)
     got = ell_spmv(torch.as_tensor(flat), torch.as_tensor(adj),
@@ -135,7 +141,11 @@ def test_wrapper_rejects_bad_operands():
 @pytest.mark.parametrize("f,K,itemsize,want", [
     (9, 15, 4, 4), (9, 15, 8, 2), (8, 15, 4, 1), (8, 15, 8, 1),
     (3, 7, 4, 4), (3, 7, 8, 2), (1, 1, 4, 4), (1, 1, 8, 2), (2, 1, 4, 1),
-    (9, 2, 4, 2)])
+    (9, 2, 4, 2),
+    # f=7 and f=5 at the pores' K=15 (2,940 / 5,880 B and 1,500 / 3,000 B
+    # rows) and the 1D meshes' K=3 (588 / 1,176 B and 300 / 600 B)
+    (7, 15, 4, 4), (7, 15, 8, 2), (7, 3, 4, 4), (7, 3, 8, 2),
+    (5, 15, 4, 4), (5, 15, 8, 2), (5, 3, 4, 4), (5, 3, 8, 2)])
 def test_align_vertices(f, K, itemsize, want):
     assert align_vertices(f, K, itemsize) == want
     assert (want * f * K * f * itemsize) % 16 == 0
@@ -150,12 +160,43 @@ def test_align_vertices(f, K, itemsize, want):
     (8, 15, 4, 4),
     (20, 30, 8, 2),      # 96 KB rows: two fit, four do not
     (9, 201, 4, 1),      # four rows exceed shared memory: one, unaligned
+    (7, 15, 4, 4),       # a warp per vertex: 626 tiles at the pore
+    (7, 15, 8, 4),
+    (5, 15, 4, 4),
+    (5, 15, 8, 4),
+    (7, 3, 4, 16),       # a thread per row: 112 of 128 threads
+    (7, 3, 8, 18),       # 126 of 128
+    (5, 3, 4, 24),       # 120 of 128
+    (5, 3, 8, 24),
 ])
 def test_tile_vertices(f, K, itemsize, want):
     tile = tile_vertices(f, K, itemsize)
     assert tile == want
     if tile > 1:
         assert tile % align_vertices(f, K, itemsize) == 0
+
+
+# every model shape: the 3D pores (K=15: GMPNP f=9, reaction-diffusion
+# f=7; the AMG coarse level is f=9, K=15 too), the 1D EDL (K=3, f=7) and
+# reaction-diffusion (f=5) meshes, and the Krylov tests' 3- and 2-field
+# systems on the run-time-f kernel
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("f,K,mode,lanes", [
+    (9, 15, VERTEX_WARP, 32), (7, 15, VERTEX_WARP, 32),
+    (7, 3, ROW_THREAD, 7), (5, 3, ROW_THREAD, 5),
+    (3, 15, ROW_WARP, 96), (2, 3, ROW_WARP, 64)])
+def test_launch_plan_at_model_shapes(f, K, mode, lanes, itemsize):
+    plan = launch_plan(f, K, itemsize)
+    assert (plan.mode, plan.lanes) == (mode, lanes)
+    assert plan.tile == tile_vertices(f, K, itemsize)
+    assert plan.tile % align_vertices(f, K, itemsize) == 0
+    assert _tile_smem(plan.tile, f, K, itemsize) <= 200 * 1024
+    if mode == ROW_THREAD:
+        # each of the 128 threads owns at most one output row, and one
+        # more aligned group of vertices would not fit
+        assert 128 - f * align_vertices(f, K, itemsize) < plan.tile * f <= 128
+    else:
+        assert plan.tile >= 4       # every warp has a vertex or a row
 
 
 def test_tile_vertices_rejects_a_row_beyond_shared_memory():

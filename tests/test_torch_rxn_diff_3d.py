@@ -12,17 +12,24 @@ Tolerances, each with its reason:
   (tests/test_goldens.py);
 - 3 carried steps (f32 chord directions) at tight Newton tolerances
   (rtol = atol = 1e-11, slab tol 1e-12, as tests/test_torch_pore_3d.py):
-  the same Newton iterations, states within 1e-8.  At the production
-  tolerance (atol 1e-4) the two packages' f32 chord directions, which
-  round differently, lead to two points inside the tolerance: the same
-  Newton iterations, every field within 1e-9 but H (the smallest field,
-  ~0.04 of bulk) 2.5e-5 apart;
+  the same Newton iterations, states within 1e-8;
+- 3 carried steps at the production tolerances (the config's defaults:
+  Newton rtol = atol = 1e-4, slab tol 1e-6) against the reference's
+  carried run, read from ``goldens/torch_rxn_diff_carried.json``: the
+  same Newton iterations, and each field within the reference's own
+  carried-vs-exact spread at those tolerances (the band of this path,
+  from the same golden).  The two packages' f32 chord directions round
+  differently and stop at two points inside the Newton tolerance: H (the
+  smallest field, ~0.04 of bulk) lies 1e-5 to 3e-5 from the reference's
+  carried run, and the reference's own carried run lies ~3e-3 from its
+  exact one in H (~1e-7 over all fields; the test prints both);
 - the CLIs in their default exact mode, the reference's writer fed the
   port's transient: the same files, npz keys and metadata keys (no
   ``voltage_multiplier``), values within 1e-12 (the post-processing is
   the same arithmetic).
 """
 
+import dataclasses
 import json
 import os
 
@@ -47,6 +54,8 @@ from gmpnp_tpu_torch.testing import GoldenFile, field_summary, rel_l2  # noqa: E
 RES = (2, 10)
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
                       "pore_3d_rxn_diff_3steps.json")
+CARRIED_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "goldens", "torch_rxn_diff_carried.json")
 
 
 @pytest.fixture(scope="module")
@@ -139,6 +148,52 @@ def test_carried_steps_match_reference():
     assert rel_l2(t_u, j_u) <= 1e-8
 
 
+def _production_run(mod, refresh, **kw):
+    """3 steps at the config's default tolerances, exact ('iter') or
+    carried; returns the Newton iterations and the final state."""
+    cfg = mod.Pore3DConfig(physics="rxn_diff", mesh_resolution=RES)
+    cfg = dataclasses.replace(cfg, linear=dataclasses.replace(
+        cfg.linear, refresh=refresh))
+    _, _, stats, u = mod.build(cfg, **kw).run(n_steps=3)
+    assert np.asarray(stats.converged).all(), (mod.__name__, refresh)
+    return np.asarray(stats.newton_iters), np.asarray(u)
+
+
+def _field_distances(a, b):
+    """Relative L2 distance of each field of a from b."""
+    return [rel_l2(a[:, i], b[:, i]) for i in range(b.shape[1])]
+
+
+def write_carried_golden():
+    """The reference's exact and carried runs at production tolerances."""
+    out = {}
+    for refresh in ("iter", "carried"):
+        iters, u = _production_run(jp3, refresh)
+        out[refresh] = {"newton_iters": iters.tolist(),
+                        "u": u.tolist()}
+    with open(CARRIED_GOLDEN, "w") as fh:
+        json.dump(out, fh)
+
+
+def test_carried_steps_at_production_tolerance_within_reference_band():
+    """The port's carried run against the reference's, each field held to
+    the reference's own carried-vs-exact spread (the band of this path)."""
+    with open(CARRIED_GOLDEN) as fh:
+        ref = json.load(fh)
+    ref_exact = np.asarray(ref["iter"]["u"])
+    ref_carried = np.asarray(ref["carried"]["u"])
+    band = _field_distances(ref_carried, ref_exact)
+    iters, u = _production_run(tp3, "carried", device="cpu")
+    got = _field_distances(u, ref_carried)
+    names = tp3.Pore3DConfig(physics="rxn_diff").species
+    print("field: port carried vs reference carried / reference carried vs "
+          "exact: " + ", ".join(f"{n} {g:.3e} / {b:.3e}"
+                                for n, g, b in zip(names, got, band)))
+    np.testing.assert_array_equal(iters, ref["carried"]["newton_iters"])
+    for n, g, b in zip(names, got, band):
+        assert g <= b, (n, g, b)
+
+
 def _cli_run(cli, root, extra=()):
     res = cli.main(["--mesh_resolution", *map(str, RES), "--n_steps", "2",
                     "--out_root", str(root), *extra])
@@ -187,3 +242,10 @@ def test_cli_outputs_match_reference(tmp_path, monkeypatch):
     assert "c_cat" in t_npz["arrays_scaled.npz"]
     assert "cat" not in t_npz["arrays_unscaled.npz"]
     assert "p" not in t_npz["arrays_unscaled.npz"]
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    write_carried_golden()
+    print(f"wrote {CARRIED_GOLDEN}")
