@@ -20,7 +20,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    copies in rotation, so every read comes from device memory); the bound
    computed from the shapes and the share of it the cold time reaches; one
    library call (``torch.sparse_bsr_tensor @ x``) timed the same way as a
-   yardstick; the device time of a one-tile launch as the floor; and
+   yardstick; the device time of a one-tile launch as the floor; the
+   lane axis at the batched pore sweep's shape (3 lanes of N=2,501, K=15,
+   f=9, f32 and f64): each lane bitwise equal to a one-lane launch, from a
+   contiguous (V, N, f, K*f) tensor and from the lane-aligned layout, the
+   copy path each lane takes, the twin, times, the bound and the library
+   call (the lanes as one block-diagonal ``torch.sparse_bsr_tensor``); and
    ragged, single-neighbour and misaligned shapes (f=5 and f=7 at K=3 and
    K=15 among them) for correctness and bitwise repeatability only;
 4. the paths, each with every launch count set to 0 before it and read
@@ -49,6 +54,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      5 steps, no kernel), each lane against its single-lane sweep (1e-12)
      and the model's own run at that voltage (1e-5), and a K/Cs x 2-lane x
      2-step ``run_pore_voltage_cation_sweep``, with per-lane lines;
+   - batched sweep lanes (the reference's chunk vmap modes), after one
+     untimed batched step: the pore at L50R5 with ``chunk=3`` (-0.5 /
+     -1.0 / -1.5 V, the carried config downgraded to ``refresh='step'``,
+     3 steps, f64 GMRES over the kernel's lane axis), the EDL at L_n=50 um
+     with ``chunk=3`` (5 steps) and the pore at the (3, 40) mesh
+     (N=1,517) with the default chunk, each against its lanes run with
+     ``chunk=0``: a line per batched step (ms, each lane's Newton and
+     Krylov iterations, host syncs, launches), a line per lane (distance,
+     iterations, converged flags, the chunk=0 run's ms per step), and per
+     sweep ms per step and per lane-step beside chunk=0's, host syncs per
+     step and peak device memory;
    - the Krylov fallbacks on the L50R5 cold-start Jacobian (BiCGStab +
      block-Jacobi f64, GMRES + block-Jacobi f32, GMRES + SSOR f64, GMRES +
      AMG f64 and f32): iterations, the true residual recomputed in f64
@@ -129,6 +145,8 @@ SLICE = ["--L", "50e-9", "--R", "5e-9"]
 PORE_KW = {"L": 50e-9, "R": 5e-9}   # the same pore as Pore3DConfig fields
 EDL_L_N = 50e-6                 # the 1D models' default system size
 KERNEL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+LANES = 3                       # lanes of the batched sweeps (chunk=3)
+BATCHED_SMALL_MESH = (3, 40)    # N=1,517: under 2,000, _auto_chunk batches
 # NVIDIA H100 SXM data sheet: device memory rate; f32 and f64 rates outside
 # the tensor cores (the kernel uses none)
 HBM_BYTES_PER_S = 3.35e12
@@ -190,14 +208,16 @@ def graph_us(fns, n=100, reps=10) -> float:
     return float(np.median(times))
 
 
-def spmv_bound(N, K, f, dtype):
+def spmv_bound(N, K, f, dtype, lanes=1):
     """The least time the card could take for one product: every input read
     once and the output written once over the memory rate, or the
-    operations over the peak rate of their type, whichever is larger."""
+    operations over the peak rate of their type, whichever is larger.
+    Over ``lanes`` lanes every lane's matrix, x and y count and the shared
+    adjacency once."""
     size = torch.empty((), dtype=dtype).element_size()
-    nbytes = N * f * K * f * size + N * K * 4 + 2 * N * f * size
+    nbytes = lanes * (N * f * K * f * size + 2 * N * f * size) + N * K * 4
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2 * N * f * K * f / PEAK_FLOPS[dtype]
+    t_ops = 2 * lanes * N * f * K * f / PEAK_FLOPS[dtype]
     return {"bytes": nbytes, "bound_us": max(t_bytes, t_ops) * 1e6,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -260,14 +280,21 @@ def library_times(flats, adj, x, ref):
 def kernel_times(label, flat, adj, x, library=True):
     """Times of ell_spmv and its plain version at one shape and type, in
     turns (plain, kernel, kernel, plain), with the bound; prints one line
-    and returns the record."""
-    from gmpnp_tpu_torch.ops.ell_spmv import ell_spmv, ell_spmv_reference
+    and returns the record.  A lane-batched ``flat`` (V, N, f, K*f) is
+    timed as one launch over its lanes, its copies laid out as it is
+    (``lane_aligned``), and its library call is the V lanes as one
+    block-diagonal matrix."""
+    from gmpnp_tpu_torch.ops.ell_spmv import (
+        ell_spmv, ell_spmv_reference, lane_aligned)
 
-    N, f, Kf = flat.shape
+    lanes = flat.shape[0] if flat.dim() == 4 else 1
+    N, f, Kf = flat.shape[-3:]
     K = Kf // f
-    bound = spmv_bound(N, K, f, flat.dtype)
+    bound = spmv_bound(N, K, f, flat.dtype, lanes)
     copies = -(-COLD_ROTATION_BYTES // (flat.numel() * flat.element_size()))
-    flats = [flat] + [flat.clone() for _ in range(copies - 1)]
+    copy = ((lambda m: lane_aligned(m.contiguous())) if lanes > 1
+            else (lambda m: m.clone()))
+    flats = [flat] + [copy(flat) for _ in range(copies - 1)]
     turns = {"kernel": [], "plain": []}
     for name in ("plain", "kernel", "kernel", "plain"):
         fn = ell_spmv if name == "kernel" else ell_spmv_reference
@@ -284,10 +311,21 @@ def kernel_times(label, flat, adj, x, library=True):
            "bound_us": bound["bound_us"], "bound_ms": bound["bound_us"] / 1e3,
            "bound_by": bound["bound_by"],
            "share_of_bound_cold": bound["bound_us"] / cold}
-    if library:
+    if library and lanes > 1:
+        # the lanes as one block-diagonal matrix: lane v's columns shifted
+        # by v*N
+        shift = torch.arange(lanes, device=adj.device,
+                             dtype=adj.dtype)[:, None, None] * N
+        adj_bd = (adj[None] + shift).reshape(lanes * N, K).contiguous()
+        rec.update(library_times(
+            [m.reshape(lanes * N, f, Kf) for m in flats], adj_bd,
+            x.reshape(lanes * N, f),
+            ell_spmv_reference(flat, adj, x).reshape(lanes * N, f)))
+    elif library:
         rec.update(library_times(flats, adj, x,
                                  ell_spmv_reference(flat, adj, x)))
-    print(f"kernel ell_spmv {label} N={N} K={K} f={f} {flat.dtype}: "
+    lane_txt = f"V={lanes} " if lanes > 1 else ""
+    print(f"kernel ell_spmv {label} {lane_txt}N={N} K={K} f={f} {flat.dtype}: "
           f"bytes={bound['bytes']} cold_copies={copies} turns="
           f"{json.dumps(turns)} " + json.dumps(rec), flush=True)
     if rec["share_of_bound_cold"] > 1.0:
@@ -339,6 +377,15 @@ KERNEL_RECORDS = [
      "krylov gmres amg f32"),
     ("ell_spmv_f64_amg_coarse", "amg_coarse", torch.float64,
      "krylov gmres amg f64"),
+]
+
+
+#: the lane axis: (record name, phase-3 label, dtype, phase-4 path); the
+#: f32 lanes are checked and timed in phase 3 but run on no path (the
+#: batched pore sweep's refresh='step' solves in f64)
+LANE_RECORDS = [
+    ("ell_spmv_f64_lanes", "slice_lanes", torch.float64,
+     "sweep pore_3d batched"),
 ]
 
 
@@ -403,6 +450,7 @@ def check_kernels(dev):
               f"device_us={floor[dtype]!r}", flush=True)
 
     from gmpnp_tpu_torch.ops.ell_spmv import MODE_NAMES, launch_plan
+    from gmpnp_tpu_torch.ops.ell_spmv import VERTEX_WARP as VERTEX_WARP_MODE
 
     records = {}
     for label, adj, f, dtype in path_shapes(dev) + [
@@ -421,6 +469,50 @@ def check_kernels(dev):
                          "lanes_per_vertex": plan.lanes,
                          "tile": plan.tile},
                 "max_abs_err": err, **rec, "floor_us": floor[dtype]}
+
+    # the lane axis at the batched pore sweep's shape (3 lanes of the
+    # L=50 nm, R=5 nm pore): each lane bitwise equal to a one-lane launch,
+    # from a contiguous tensor and from the lane-aligned layout the path
+    # uses, the copy path of each lane, the twin, times and the bound
+    from gmpnp_tpu_torch.ops.ell_spmv import lane_aligned, lane_copy_paths
+
+    adj = slice_adj(dev)
+    for dtype in (torch.float32, torch.float64):
+        flat = torch.as_tensor(
+            rng.normal(size=(LANES,) + tuple(adj.shape[:1]) + (9, 135)),
+            dtype=dtype, device=dev)
+        x = torch.as_tensor(rng.normal(size=(LANES, adj.shape[0], 9)),
+                            dtype=dtype, device=dev)
+        single = torch.stack([ell_spmv(flat[v], adj, x[v])
+                              for v in range(LANES)])
+        ref = ell_spmv_reference(flat, adj, x)
+        aligned = lane_aligned(flat)
+        for name, operand in (("contiguous", flat), ("lane_aligned",
+                                                     aligned)):
+            y = ell_spmv(operand, adj, x)
+            torch.cuda.synchronize()
+            rels = [float((y[v] - ref[v]).norm() / ref[v].norm())
+                    for v in range(LANES)]
+            line = (f"kernel ell_spmv lanes {name} V={LANES} N="
+                    f"{adj.shape[0]} K=15 f=9 {dtype}: copy paths "
+                    f"{lane_copy_paths(operand)}, every lane bitwise equal "
+                    f"to its one-lane launch: {torch.equal(y, single)}, "
+                    f"rel_l2 per lane {rels}")
+            print(line, flush=True)
+            if not (torch.equal(y, single)
+                    and max(rels) <= KERNEL_TOL[dtype]):
+                raise AssertionError(line)
+        if lane_copy_paths(aligned) != ["bulk"] * LANES:
+            raise AssertionError(f"lane_aligned lanes {lane_copy_paths(aligned)}")
+        rec = kernel_times("slice_lanes", aligned, adj, x)
+        err = float((ell_spmv(aligned, adj, x) - ref).abs().max())
+        records["slice_lanes", dtype] = {
+            "shape": [LANES, adj.shape[0], 15, 9],
+            "plan": {"mode": MODE_NAMES[VERTEX_WARP_MODE],
+                     "lanes_per_vertex": 32,
+                     "tile": launch_plan(9, 15, flat.element_size()).tile,
+                     "lane_copy_paths": lane_copy_paths(aligned)},
+            "max_abs_err": err, **rec, "floor_us": floor[dtype]}
 
     # correctness and repeatability only: ragged last tiles, one neighbour,
     # widths on every kernel (f=5 and f=7 at the 1D meshes' K=3 and the
@@ -520,8 +612,9 @@ def _launches():
     from gmpnp_tpu_torch import ops
 
     out = {str(k).replace("torch.", ""): v for k, v in ops.LAUNCHES.items()}
-    out["shapes"] = {f"{N}x{K}x{f} {dt}": n for (N, K, f, dt), n
-                     in sorted(ops.SHAPE_LAUNCHES.items())}
+    out["shapes"] = {"x".join(map(str, key[:-1])) + f" {key[-1]}": n
+                     for key, n in sorted(ops.SHAPE_LAUNCHES.items(),
+                                          key=lambda kv: str(kv[0]))}
     return out
 
 
@@ -882,6 +975,199 @@ def sweep_paths(dev_name):
     for cat, (u, st) in out.items():
         if not (np.all(st.converged) and torch.isfinite(u).all()):
             raise AssertionError(f"cation sweep {cat}")
+    return launches
+
+
+@contextlib.contextmanager
+def timed_lane_steps(steps_log):
+    """Wraps the sweeps' run_transient_lanes so that each batched step ends
+    in a synchronize and records wall ms, each lane's Newton and Krylov
+    iterations, host syncs and kernel launches (per dtype and shape)."""
+    from gmpnp_tpu_torch import ops, sync
+    from gmpnp_tpu_torch.parallel import sweep
+
+    orig = sweep.run_transient_lanes
+
+    def timed_run(step, *args, **kw):
+        def timed(*a):
+            torch.cuda.synchronize()
+            l0, s0 = dict(ops.SHAPE_LAUNCHES), sync.SYNCS
+            t0 = time.perf_counter()
+            out = step(*a)
+            torch.cuda.synchronize()
+            st = out[1]
+            steps_log.append({
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "newton": st.newton_iters.tolist(),
+                "linear": st.linear_iters.tolist(),
+                "converged": st.converged.tolist(),
+                "host_syncs": sync.SYNCS - s0,
+                "launches": {"x".join(map(str, k[:-1])) + f" {k[-1]}":
+                             v - l0.get(k, 0)
+                             for k, v in ops.SHAPE_LAUNCHES.items()
+                             if v != l0.get(k, 0)}})
+            return out
+        return orig(timed, *args, **kw)
+
+    sweep.run_transient_lanes = timed_run
+    try:
+        yield
+    finally:
+        sweep.run_transient_lanes = orig
+
+
+def batched_sweep(label, fn, seq_fn, volts, n_steps, chunk, bar,
+                  newton_gap=0):
+    """One batched sweep (``chunk`` lanes a batch) against the same lanes
+    run one at a time (``chunk=0``, the same linear settings): launch
+    counts set to 0 before each and read after; per-step and per-lane
+    lines, ms per step and per lane-step beside the one-at-a-time run's,
+    host syncs per step, peak device memory.  Each lane within ``bar``
+    (relative L2 over its whole history) of its one-at-a-time run, Newton
+    counts within ``newton_gap`` of its, the same converged flags, and
+    every step after the cold first one converged.  (Under
+    ``refresh='step'`` the modified Newton of a deep lane's cold step may
+    spend its 50 iterations: the -1.5 V pore lane does at L50R5 and at
+    (3, 40), in both modes, as the reference's downgraded sweep does on its
+    test meshes.  Such a lane's iterates at the budget are not a solution
+    and take the roundings of either mode, so its distance is printed and
+    not held to ``bar``.)"""
+    from gmpnp_tpu_torch import sync
+    from gmpnp_tpu_torch.parallel import sweep
+    from gmpnp_tpu_torch.testing import rel_l2
+
+    V = len(volts)
+    runs = {}
+    for mode, run in (("batched", fn), ("chunk0", seq_fn)):
+        steps = []
+        _zero_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s0, t0 = sync.SYNCS, time.perf_counter()
+        timer = (timed_lane_steps(steps) if mode == "batched"
+                 else timed_steps(sweep, steps))
+        with timer:
+            u, stats = run()
+        torch.cuda.synchronize()
+        runs[mode] = {
+            "wall_s": time.perf_counter() - t0, "steps": steps,
+            "host_syncs": sync.SYNCS - s0, "launches": _launches(),
+            "peak_bytes": torch.cuda.max_memory_allocated(), "u": u,
+            "stats": stats}
+    b, c = runs["batched"], runs["chunk0"]
+    n_batches = -(-V // chunk)
+    if len(b["steps"]) != n_batches * n_steps or len(c["steps"]) != (
+            V * n_steps):
+        raise AssertionError(f"{label}: {len(b['steps'])} batched and "
+                             f"{len(c['steps'])} single step records")
+    ms_b = [st["ms"] for st in b["steps"]]
+    ms_c = [st["ms"] for st in c["steps"]]
+    print(f"path {label}: lanes={V} chunk={chunk} n_steps={n_steps} "
+          f"batched wall_s={b['wall_s']!r} ms/step {[round(t, 1) for t in ms_b]} "
+          f"ms/lane-step {sum(ms_b) / (V * n_steps)!r} host_syncs/step "
+          f"{b['host_syncs'] / (n_batches * n_steps)!r} peak_bytes "
+          f"{b['peak_bytes']} launches={b['launches']}; chunk=0 wall_s="
+          f"{c['wall_s']!r} ms/lane-step {sum(ms_c) / (V * n_steps)!r} "
+          f"host_syncs/lane-step {c['host_syncs'] / (V * n_steps)!r} "
+          f"peak_bytes {c['peak_bytes']} launches={c['launches']}",
+          flush=True)
+    for i, st in enumerate(b["steps"]):
+        print(f"  batched step {i}: " + json.dumps(st), flush=True)
+    failed = []
+    for v, volt in enumerate(volts):
+        lane_c = c["steps"][v * n_steps:(v + 1) * n_steps]
+        d = rel_l2(b["u"][v].cpu().numpy(), c["u"][v].cpu().numpy())
+        nb = b["stats"].newton_iters[v]
+        nc = c["stats"].newton_iters[v]
+        line = (f"  lane {volt}: {d!r} from its chunk=0 run; newton "
+                f"{nb.tolist()} (chunk=0 {nc.tolist()}), krylov "
+                f"{b['stats'].linear_iters[v].tolist()} (chunk=0 "
+                f"{c['stats'].linear_iters[v].tolist()}), converged "
+                f"{b['stats'].converged[v].tolist()} (chunk=0 "
+                f"{c['stats'].converged[v].tolist()}), chunk=0 ms/step "
+                f"{[round(st['ms'], 1) for st in lane_c]}")
+        print(line, flush=True)
+        converged = np.all(b["stats"].converged[v])
+        if not ((d <= bar or not converged)
+                and np.abs(nb - nc).max() <= newton_gap
+                and np.array_equal(b["stats"].converged[v],
+                                   c["stats"].converged[v])
+                and np.all(b["stats"].converged[v][1:])):
+            failed.append(line)
+    if failed:
+        raise AssertionError(f"{label}: {failed}")
+    return b["launches"], b["u"]
+
+
+def batched_sweep_paths(dev_name):
+    """Phase 4c, batched lanes (the reference's chunk vmap modes): the
+    GMPNP pore at L50R5 with chunk=3 (the carried config downgraded to
+    refresh='step', as the reference does), the EDL at L_n = 50 um with
+    chunk=3, and the pore at the (3, 40) mesh (N=1,517) with the default
+    chunk (_auto_chunk batches every lane under 2,000 vertices), each
+    against its lanes run with chunk=0 and the same linear settings.  Bars:
+    the pore 1e-4 relative L2 and Newton counts within 1 (its f32 slab
+    preconditioner, batched, rounds otherwise, so the f64 GMRES stops at
+    tol 1e-6 at another point and Newton stops at another point inside its
+    tolerance 1e-4: 1.4e-5 apart with one more iteration on the (2, 8)
+    mesh on the CPU), the EDL 1e-10 (all-f64 CR) with the same Newton
+    counts."""
+    from gmpnp_tpu_torch.models import edl_1d
+    from gmpnp_tpu_torch.parallel import sweep
+
+    launches = {}
+    cfg = _pore_cfg(refresh="carried")
+    cfg_step = _pore_cfg(refresh="step")
+    volts = [-0.5, -1.0, -1.5]
+    # the first lane-batched run of a process pays one-time costs (~12 s
+    # at L50R5 in the first batched step, against ~2.8 s in a second run
+    # in the same process): one untimed batched step at this size first
+    t0 = time.perf_counter()
+    sweep.run_pore_voltage_sweep(cfg, volts, n_steps=1, chunk=LANES,
+                                 device=dev_name)
+    sweep.run_edl_voltage_sweep(edl_1d.EDL1DConfig(L_n=EDL_L_N), volts,
+                                n_steps=1, chunk=LANES, device=dev_name)
+    torch.cuda.synchronize()
+    print(f"batched sweeps: untimed warm-up (one batched step of the pore "
+          f"at L50R5 and of the EDL) {time.perf_counter() - t0!r} s",
+          flush=True)
+    info = {}
+    launches["sweep pore_3d batched"], u = batched_sweep(
+        "sweep pore_3d batched L50R5",
+        lambda: sweep.run_pore_voltage_sweep(
+            cfg, volts, n_steps=3, chunk=LANES, device=dev_name, info=info),
+        lambda: sweep.run_pore_voltage_sweep(
+            cfg_step, volts, n_steps=3, chunk=0, device=dev_name),
+        volts, 3, LANES, 1e-4, newton_gap=1)
+    if info != {"chunk": LANES, "refresh": "step"}:
+        raise AssertionError(f"batched pore sweep ran {info}")
+    key = f"{LANES}x{u.shape[2]}x15x9 float64"
+    if not launches["sweep pore_3d batched"]["shapes"].get(key):
+        raise AssertionError(f"the batched pore sweep launched no {key}")
+
+    ecfg = edl_1d.EDL1DConfig(L_n=EDL_L_N)
+    evolts = [-0.5, -1.0, -2.0]
+    launches["sweep edl_1d batched"], _ = batched_sweep(
+        "sweep edl_1d batched L_n=50um",
+        lambda: sweep.run_edl_voltage_sweep(
+            ecfg, evolts, n_steps=5, chunk=LANES, device=dev_name),
+        lambda: sweep.run_edl_voltage_sweep(
+            ecfg, evolts, n_steps=5, chunk=0, device=dev_name),
+        evolts, 5, LANES, 1e-10)
+
+    small = dataclasses.replace(cfg, mesh_resolution=BATCHED_SMALL_MESH)
+    small_step = dataclasses.replace(cfg_step,
+                                     mesh_resolution=BATCHED_SMALL_MESH)
+    info = {}
+    launches["sweep pore_3d batched small"], _ = batched_sweep(
+        "sweep pore_3d batched (3, 40) default chunk",
+        lambda: sweep.run_pore_voltage_sweep(
+            small, volts, n_steps=3, device=dev_name, info=info),
+        lambda: sweep.run_pore_voltage_sweep(
+            small_step, volts, n_steps=3, chunk=0, device=dev_name),
+        volts, 3, LANES, 1e-4, newton_gap=1)
+    if info != {"chunk": LANES, "refresh": "step"}:
+        raise AssertionError(f"the (3, 40) sweep ran {info}")
     return launches
 
 
@@ -1484,12 +1770,15 @@ def _sync(dev):
 def profile_calls(dev, mesh_resolution=None, reps=5):
     """Median host-clock ms of each layer's call at the cold start (state
     at bulk, first step's theta), each call ended by a synchronize, with
-    the host syncs it made; the Jacobian's peak device memory."""
+    the host syncs it made; the Jacobian's peak device memory.  Then the
+    lane-batched layers at three lanes (the batched sweep's voltages) and
+    the f32 inverse of one slab's three blocks, batched against one call
+    per block."""
     from gmpnp_tpu_torch import sync
     from gmpnp_tpu_torch.models import pore_3d
     from gmpnp_tpu_torch.solve.slab import (
         SlabPlan, SlabPrepared, full_f32_precision, slab_apply,
-        slab_apply_f32, slab_factor_fused, slab_solve)
+        slab_apply_f32, slab_factor_fused, slab_prepare, slab_solve)
     from gmpnp_tpu_torch.solve.smallblock import block_inv
 
     full_f32_precision()
@@ -1524,6 +1813,44 @@ def profile_calls(dev, mesh_resolution=None, reps=5):
         ("slab_apply f64 tol 1e-6",
          lambda: slab_apply(prep, r, plan, tol=1e-6, max_refine=40)),
     ]
+    # the lane-batched layers, 3 lanes of the same cold start (the
+    # batched sweep's -0.5 / -1.0 / -1.5 V), and the f32 inverse of one
+    # slab's 3 blocks as one batched call against one call per block
+    from gmpnp_tpu_torch.solve.slab import (
+        _inv_refined_lanes, slab_apply_lanes, slab_prepare_lanes)
+    from gmpnp_tpu_torch.solve.timeloop import stack_lane_theta
+
+    thetas = []
+    for volt in (-0.5, -1.0, -1.5):
+        thetas.append(dict(theta, voltage=volt))
+    lth = stack_lane_theta(thetas, dev)
+    U = u0.expand((LANES,) + tuple(u0.shape)).clone()
+    lbc = prog.bc.arith().set_value_arith(prog.s1_verts, prog.idx["CO2"],
+                                          lth["co2_s1"])
+    Ul = lbc.project(U)
+    lell = lbc.apply_to_jacobian(space.jacobian_lanes(form, Ul, U, lth))
+    lprep = slab_prepare_lanes(lell, plan)
+    lr = lbc.apply_to_residual(space.residual_lanes(form, Ul, U, lth), Ul)
+    blocks = lprep.factors.Dinv[:, 0].contiguous()
+    calls += [
+        ("FemSpace.residual_lanes (3 lanes)",
+         lambda: space.residual_lanes(form, Ul, U, lth)),
+        ("FemSpace.jacobian_lanes (3 lanes)",
+         lambda: space.jacobian_lanes(form, Ul, U, lth)),
+        ("slab_prepare (1 lane)",
+         lambda: slab_prepare(ell, plan)),
+        ("slab_prepare_lanes (3 lanes)",
+         lambda: slab_prepare_lanes(lell, plan)),
+        ("slab_apply_lanes f64 tol 1e-6 (3 lanes)",
+         lambda: slab_apply_lanes(lprep, lr, plan, tol=1e-6,
+                                  max_refine=40)),
+        ("torch.linalg.inv of 3 f32 slab blocks, one batched call",
+         lambda: torch.linalg.inv(blocks)),
+        ("torch.linalg.inv of 3 f32 slab blocks, one call each",
+         lambda: [torch.linalg.inv(b) for b in blocks]),
+        ("_inv_refined_lanes of 3 f32 slab blocks",
+         lambda: _inv_refined_lanes(blocks)),
+    ]
     print(f"profile: N={space.num_vertices} K={space.adj.shape[1]} "
           f"S={plan.S} m={plan.m}", flush=True)
     for name, fn in calls:
@@ -1541,7 +1868,7 @@ def profile_calls(dev, mesh_resolution=None, reps=5):
         extra = ""
         if hasattr(out, "iters"):
             extra += f" gmres_iters={out.iters}"
-        if name == "FemSpace.jacobian" and dev.type == "cuda":
+        if name.startswith("FemSpace.jacobian") and dev.type == "cuda":
             extra += (f" peak_bytes="
                       f"{torch.cuda.max_memory_allocated(dev)}")
         print(f"  call {name}: ms={float(np.median(times))!r} host_syncs="
@@ -1549,27 +1876,44 @@ def profile_calls(dev, mesh_resolution=None, reps=5):
 
 
 def profile_steps(dev, mesh_resolution=None, top=12):
-    """Device time over wall for 5 carried steps (after one warm run) and 2
-    exact steps, from torch.profiler, with the largest kernels' shares."""
+    """Device time over wall for 5 carried steps (after one warm run), 2
+    exact steps and 2 steps of the batched pore sweep (3 lanes, chunk=3,
+    refresh='step'; after one warm batched step), from torch.profiler,
+    with the largest kernels' shares."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from gmpnp_tpu_torch.models import pore_3d
+    from gmpnp_tpu_torch.parallel import sweep
 
     cfg = pore_3d.Pore3DConfig(L=50e-9, R=5e-9,
                                mesh_resolution=mesh_resolution)
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    for refresh, n in (("carried", 5), ("iter", 2)):
+
+    def model_run(refresh):
         c = dataclasses.replace(cfg, linear=dataclasses.replace(
             cfg.linear, refresh=refresh))
         prog = pore_3d.build(c, device=dev)
-        prog.run(n_steps=1)
+        return lambda n: prog.run(n_steps=n)[2]
+
+    def batched_run(n):
+        # the carried config, downgraded to refresh='step' by chunk != 0
+        c = dataclasses.replace(cfg, linear=dataclasses.replace(
+            cfg.linear, refresh="carried"))
+        return sweep.run_pore_voltage_sweep(
+            c, [-0.5, -1.0, -1.5], n_steps=n, chunk=LANES, device=dev)[1]
+
+    for label, run, n in (("refresh=carried", model_run("carried"), 5),
+                          ("refresh=iter", model_run("iter"), 2),
+                          ("batched sweep chunk=3 refresh=step",
+                           batched_run, 2)):
+        run(1)
         _sync(dev)
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            _, _, stats, _ = prog.run(n_steps=n)
+            stats = run(n)
             _sync(dev)
             wall = (time.perf_counter() - t0) * 1e3
         kernels = [e for e in prof.key_averages()
@@ -1578,7 +1922,7 @@ def profile_steps(dev, mesh_resolution=None, top=12):
                                  getattr(e, "self_cuda_time_total", 0.0))
                   for e in kernels}
         total = sum(dev_us.values()) / 1e3
-        print(f"profile refresh={refresh} n_steps={n}: wall_ms={wall!r} "
+        print(f"profile {label} n_steps={n}: wall_ms={wall!r} "
               f"device_ms={total!r} busy_share="
               f"{total / wall if wall else 0.0!r} newton="
               f"{np.asarray(stats.newton_iters).tolist()}", flush=True)
@@ -1629,8 +1973,8 @@ def main(argv=None) -> int:
     shutil.rmtree(OUT, ignore_errors=True)
     records = check_kernels(dev)
     launches = main_path("cuda")
-    for phase in (checkpoint_paths, sweep_paths, krylov_paths,
-                  newton_mode_paths, shard_paths):
+    for phase in (checkpoint_paths, sweep_paths, batched_sweep_paths,
+                  krylov_paths, newton_mode_paths, shard_paths):
         launches.update(phase("cuda"))
     checks("cuda")
 
@@ -1640,6 +1984,18 @@ def main(argv=None) -> int:
         N, K, f = rec["shape"]
         n = launches[path]["shapes"].get(
             f"{N}x{K}x{f} {str(dtype).replace('torch.', '')}", 0)
+        if n <= 0:
+            raise AssertionError(f"{name}: path {path} launched no kernel at "
+                                 f"{rec['shape']}")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "gmpnp_tpu_torch/csrc/ell_spmv.cu",
+                        "replaces": "gmpnp_tpu/ops/ell_spmv.py:70",
+                        "path": path, "launches": n, **rec})
+    for name, label, dtype, path in LANE_RECORDS:
+        rec = records[label, dtype]
+        n = launches[path]["shapes"].get(
+            "x".join(map(str, rec["shape"]))
+            + f" {str(dtype).replace('torch.', '')}", 0)
         if n <= 0:
             raise AssertionError(f"{name}: path {path} launched no kernel at "
                                  f"{rec['shape']}")

@@ -89,3 +89,20 @@ def co2_saturation_conc(
         K_H = float(K_H)
     return fugacity_CO2 * K_H * 1000.0 * 10.0 ** (-sechenov)
 
+
+
+def equilibrium_gas_conc(
+    gas: str,
+    press_gas: Scalar,
+    y_gas: Scalar,
+    params: ParameterSet = DEFAULT_PARAMS,
+):
+    """Equilibrium dissolved-gas concentration at a gas/electrolyte interface
+    via the constant Henry coefficients table (mol/m^3): a tensor when an
+    argument is one, else a numpy value.
+
+    eq_conc = H_gas * P * y_gas * density_water.  ref: 3D/MPNP_CO2ER_pore.py:253-255.
+    """
+    H = params.henry_const[gas]
+    return _xp(press_gas, y_gas).asarray(
+        H * press_gas * y_gas * params.sys_params.density_e)

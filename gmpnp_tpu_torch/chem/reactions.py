@@ -127,3 +127,28 @@ def buffer_rates(
         out.append(Ri)
     return torch.stack(out, dim=-1)
 
+
+
+def kinetics_0d(y: torch.Tensor, k: RateConstants) -> torch.Tensor:
+    """0D batch-reactor RHS for [HCO3, OH, CO32, CO2] in mol/m^3.
+
+    Water self-ionization is not tracked (H+ is slaved to OH- through Kw when
+    post-processing pH).  ref: utilities/bulk_soln.py:21-30.
+    """
+    C_HCO3, C_OH, C_CO32, C_CO2 = y[0], y[1], y[2], y[3]
+    r_a = k.ka1 * C_HCO3 * C_OH - k.ka2 * C_CO32
+    r_b = k.kb1 * C_CO2 * C_OH - k.kb2 * C_HCO3
+    return torch.stack([r_b - r_a, -r_b - r_a, r_a, -r_b])
+
+
+def kinetics_0d_const_co2(
+    y: torch.Tensor, k: RateConstants, C0_CO2: float
+) -> torch.Tensor:
+    """0D RHS for [HCO3, OH, CO32] with [CO2] held at saturation.
+
+    ref: utilities/bulk_soln.py:56-64.
+    """
+    C_HCO3, C_OH, C_CO32 = y[0], y[1], y[2]
+    r_a = k.ka1 * C_HCO3 * C_OH - k.ka2 * C_CO32
+    r_b = k.kb1 * C0_CO2 * C_OH - k.kb2 * C_HCO3
+    return torch.stack([r_b - r_a, -r_b - r_a, r_a])

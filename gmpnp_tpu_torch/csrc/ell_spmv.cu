@@ -65,6 +65,17 @@
 // times one vector has no reuse to feed wgmma, TF32 would break the f32
 // parity bands, and the kernel is bound by bytes, not operations.
 //
+// Lanes.  One launch may multiply V matrices of one sparsity (the lanes of
+// a batched sweep: flat (V, N, f, K*f), x and y (V, N, f), adj shared), as
+// the reference's vmap of the Pallas kernel adds a batch axis to its grid:
+// blockIdx.y picks the lane, whose matrix starts lane_stride values after
+// the previous one's.  Tiles start at vertex 0 in every lane, so a lane's
+// sums are those of a one-lane launch, bit for bit.  A lane whose matrix
+// does not start on a 16-byte boundary (N*f*K*f values that are no
+// multiple of 16 bytes, with no padding between lanes) takes the
+// element-sized copies; the wrapper pads the lane stride where it builds
+// lane matrices (ops/ell_spmv.py::lane_aligned), so none does on the paths.
+//
 // Padded ELL slots alias the row's own vertex with zero blocks and need no
 // special case.  The kernel launches on the caller's stream, does not
 // synchronise and allocates nothing; the C entry points return
@@ -139,12 +150,14 @@ __device__ __forceinline__ T warp_sum_rows(const T (&acc)[F], int lane) {
 }
 
 // F > 0: f known at compile time; F == 0: f at run time (kRowWarp only).
-// aligned != 0: every tile starts on a 16-byte boundary.
+// aligned != 0: a tile is a whole number of 16-byte units, so every tile
+// starts on a 16-byte boundary where its lane's matrix does.
 template <typename T, int F, int MODE>
 __global__ void __launch_bounds__(kThreads)
 ell_spmv_kernel(const T* __restrict__ flat, const int* __restrict__ adj,
                 const T* __restrict__ x, T* __restrict__ y,
-                int N, int K, int f_rt, int tile, int aligned) {
+                int N, int K, int f_rt, int tile, int aligned,
+                long long lane_stride) {
   static_assert(MODE == kRowWarp || F > 0, "vertex modes need f fixed");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(8) unsigned long long bar;
@@ -157,6 +170,13 @@ ell_spmv_kernel(const T* __restrict__ flat, const int* __restrict__ adj,
   const int warp = tid >> 5;
   const int n0 = blockIdx.x * tile;
   const int nv = min(tile, N - n0);
+  // the sweep lane (blockIdx.y): its matrix starts lane_stride values after
+  // the previous lane's, its x and y N*f values after; adj is shared
+  const long long lane_nf = static_cast<long long>(blockIdx.y) * N * f;
+  flat += static_cast<long long>(blockIdx.y) * lane_stride;
+  x += lane_nf;
+  y += lane_nf;
+  aligned = aligned && reinterpret_cast<uintptr_t>(flat) % 16 == 0;
 
   T* a_s = reinterpret_cast<T*>(smem);
   T* xg_s = a_s + (tile * row_len + kPer16 - 1) / kPer16 * kPer16;
@@ -272,14 +292,15 @@ ell_spmv_kernel(const T* __restrict__ flat, const int* __restrict__ adj,
 
 template <typename T, int F, int MODE>
 int launch_f(const void* flat, const void* adj, const void* x, void* y,
-             int N, int K, int f, int tile, void* stream) {
+             int N, int K, int f, int tile, int lanes, long long lane_stride,
+             void* stream) {
   constexpr long long kPer16 = 16 / sizeof(T);
   const long long row_len = static_cast<long long>(f) * K * f;
   const long long a_vals = (tile * row_len + kPer16 - 1) / kPer16 * kPer16;
   const long long smem = (a_vals + static_cast<long long>(tile) * K * f)
                          * static_cast<long long>(sizeof(T));
-  const int aligned = reinterpret_cast<uintptr_t>(flat) % 16 == 0
-                      && (tile * row_len * sizeof(T)) % 16 == 0;
+  // whole tiles of 16-byte units; each lane checks its own base pointer
+  const int aligned = (tile * row_len * sizeof(T)) % 16 == 0;
   auto kernel = ell_spmv_kernel<T, F, MODE>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -287,54 +308,63 @@ int launch_f(const void* flat, const void* adj, const void* x, void* y,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const unsigned int blocks = static_cast<unsigned int>((N + tile - 1) / tile);
+  const dim3 blocks(static_cast<unsigned int>((N + tile - 1) / tile),
+                    static_cast<unsigned int>(lanes));
   kernel<<<blocks, kThreads, static_cast<size_t>(smem),
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(flat), static_cast<const int*>(adj),
-      static_cast<const T*>(x), static_cast<T*>(y), N, K, f, tile, aligned);
+      static_cast<const T*>(x), static_cast<T*>(y), N, K, f, tile, aligned,
+      lane_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* flat, const void* adj, const void* x, void* y,
-           int N, int K, int f, int tile, int mode, void* stream) {
-  if (tile < 1) return static_cast<int>(cudaErrorInvalidValue);
+           int N, int K, int f, int tile, int mode, int lanes,
+           long long lane_stride, void* stream) {
+  if (tile < 1 || lanes < 1 || lanes > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (mode) {
     case kVertexWarp:
       if (f == 9)
         return launch_f<T, 9, kVertexWarp>(flat, adj, x, y, N, K, f, tile,
-                                           stream);
+                                           lanes, lane_stride, stream);
       if (f == 7)
         return launch_f<T, 7, kVertexWarp>(flat, adj, x, y, N, K, f, tile,
-                                           stream);
+                                           lanes, lane_stride, stream);
       if (f == 5)
         return launch_f<T, 5, kVertexWarp>(flat, adj, x, y, N, K, f, tile,
-                                           stream);
+                                           lanes, lane_stride, stream);
       break;
     case kRowThread:
       if (f == 7)
         return launch_f<T, 7, kRowThread>(flat, adj, x, y, N, K, f, tile,
-                                          stream);
+                                          lanes, lane_stride, stream);
       if (f == 5)
         return launch_f<T, 5, kRowThread>(flat, adj, x, y, N, K, f, tile,
-                                          stream);
+                                          lanes, lane_stride, stream);
       break;
     case kRowWarp:
-      return launch_f<T, 0, kRowWarp>(flat, adj, x, y, N, K, f, tile, stream);
+      return launch_f<T, 0, kRowWarp>(flat, adj, x, y, N, K, f, tile, lanes,
+                                      lane_stride, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
+// lanes >= 1 matrices of one sparsity: lane l reads flat + l * lane_stride,
+// x + l*N*f and writes y + l*N*f (one lane: lane_stride is not read)
 extern "C" int ell_spmv_f32(const void* flat, const void* adj, const void* x,
                             void* y, int N, int K, int f, int tile, int mode,
-                            void* stream) {
-  return launch<float>(flat, adj, x, y, N, K, f, tile, mode, stream);
+                            int lanes, long long lane_stride, void* stream) {
+  return launch<float>(flat, adj, x, y, N, K, f, tile, mode, lanes,
+                       lane_stride, stream);
 }
 
 extern "C" int ell_spmv_f64(const void* flat, const void* adj, const void* x,
                             void* y, int N, int K, int f, int tile, int mode,
-                            void* stream) {
-  return launch<double>(flat, adj, x, y, N, K, f, tile, mode, stream);
+                            int lanes, long long lane_stride, void* stream) {
+  return launch<double>(flat, adj, x, y, N, K, f, tile, mode, lanes,
+                        lane_stride, stream);
 }

@@ -45,6 +45,11 @@ class BlockELL(NamedTuple):
     flat : (N, f, K*f) float: flat[n, r, k*f + c] = block[n, k][r, c] — the
         layout the matvec kernel reads directly
     diag_slot : (N,) int64 position of the diagonal block within each row
+
+    Lanes: ``flat`` (V, N, f, K*f) holds V matrices of one sparsity (the
+    lanes of a batched sweep, ``adj`` and ``diag_slot`` shared); ``matvec``,
+    ``diag_blocks`` and ``scale_rows`` then take and give a leading lane
+    axis.
     """
 
     adj: torch.Tensor
@@ -52,16 +57,21 @@ class BlockELL(NamedTuple):
     diag_slot: torch.Tensor
 
     @property
+    def lanes(self):
+        """V for a lane-batched matrix, else None."""
+        return self.flat.shape[0] if self.flat.dim() == 4 else None
+
+    @property
     def n_fields(self) -> int:
-        return self.flat.shape[1]
+        return self.flat.shape[-2]
 
     @property
     def K(self) -> int:
-        return self.flat.shape[2] // self.flat.shape[1]
+        return self.flat.shape[-1] // self.flat.shape[-2]
 
     @property
     def shape4(self):
-        N, f, Kf = self.flat.shape
+        N, f, Kf = self.flat.shape[-3:]
         return (N, Kf // f, f, f)
 
     @staticmethod
@@ -78,14 +88,20 @@ class BlockELL(NamedTuple):
         return self.flat.reshape(N, f, K, f).transpose(1, 2)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """y[n] = sum_k block[n,k] @ x[adj[n,k]];  x, y: (N, f).  The CUDA
-        kernel on CUDA tensors, its plain version on CPU tensors."""
+        """y[n] = sum_k block[n,k] @ x[adj[n,k]];  x, y: (N, f) ((V, N, f)
+        over lanes, one launch).  The CUDA kernel on CUDA tensors, its plain
+        version on CPU tensors."""
         from gmpnp_tpu_torch.ops.ell_spmv import ell_spmv
 
         return ell_spmv(self.flat, self.adj, x.contiguous())
 
     def diag_blocks(self) -> torch.Tensor:
-        """(N, f, f) diagonal blocks."""
+        """(N, f, f) diagonal blocks ((V, N, f, f) over lanes)."""
+        if self.flat.dim() == 4:
+            V, N, f, Kf = self.flat.shape
+            idx = (self.diag_slot[:, None, None] * f
+                   + torch.arange(f, device=self.flat.device)[None, None, :])
+            return torch.gather(self.flat, 3, idx.expand(V, N, f, f))
         N, f, Kf = self.flat.shape
         idx = (self.diag_slot[:, None, None] * f
                + torch.arange(f, device=self.flat.device)[None, None, :])
@@ -93,7 +109,12 @@ class BlockELL(NamedTuple):
 
     def scale_rows(self, Dinv: torch.Tensor) -> "BlockELL":
         """Left-multiply every block row by (N, f, f) matrices (block-row
-        equilibration): new[n, r, :] = sum_s Dinv[n, r, s] flat[n, s, :]."""
+        equilibration): new[n, r, :] = sum_s Dinv[n, r, s] flat[n, s, :]
+        (per lane over lanes: Dinv (V, N, f, f))."""
+        if self.flat.dim() == 4:
+            flat = torch.einsum("vnrs,vnsk->vnrk", Dinv, self.flat)
+            return BlockELL(adj=self.adj, flat=flat,
+                            diag_slot=self.diag_slot)
         flat = torch.einsum("nrs,nsk->nrk", Dinv, self.flat)
         return BlockELL(adj=self.adj, flat=flat, diag_slot=self.diag_slot)
 
@@ -108,6 +129,17 @@ class BlockELL(NamedTuple):
         dense.index_put_((rows, cols), self.blocks4().reshape(N * K, f, f),
                          accumulate=True)
         return dense.permute(0, 2, 1, 3).reshape(N * f, N * f)
+
+
+def split_lane_theta(theta):
+    """A lane theta (the per-step ``theta`` of V sweep lanes: a dict whose
+    values are shared Python scalars or (V,) / (V, ...) tensors, one entry
+    per lane) -> (shared dict, dict of lane tensors)."""
+    theta = theta or {}
+    shared = {k: v for k, v in theta.items()
+              if not isinstance(v, torch.Tensor)}
+    lane = {k: v for k, v in theta.items() if isinstance(v, torch.Tensor)}
+    return shared, lane
 
 
 def _facet_tables(mesh: Mesh, quad_deg: int):
@@ -415,6 +447,39 @@ class FemSpace:
             r = r.index_add(0, tab["nodes"].reshape(-1),
                             rf.reshape(-1, self.n_fields))
         return r
+
+    # -- lane-batched assembly (sweep lanes) ---------------------------------
+
+    def residual_lanes(self, form: WeakForm, u, u_prev, theta,
+                       aux=None) -> torch.Tensor:
+        """``residual`` of V lanes at once: u, u_prev (V, N, fields),
+        ``theta`` a lane theta (``split_lane_theta``), ``aux`` (V, N, n_aux)
+        or None -> (V, N, fields).  One vmapped call over the lane axis:
+        each lane computes what ``residual`` computes for it."""
+        shared, lane = split_lane_theta(theta)
+
+        def one(ul, upl, th, ax):
+            return self.residual(form, ul, upl, {**shared, **th}, aux=ax)
+
+        return vmap(one, in_dims=(0, 0, 0, None if aux is None else 0))(
+            u, u_prev, lane, aux)
+
+    def jacobian_lanes(self, form: WeakForm, u, u_prev, theta,
+                       aux=None, dtype=None) -> BlockELL:
+        """``jacobian`` of V lanes at once -> BlockELL with flat (V, N, f,
+        K*f) (arguments as ``residual_lanes``).  The element Jacobians and
+        the sorted-segment sum of every lane are one vmapped call, so the
+        assembly's peak memory is V times one lane's."""
+        shared, lane = split_lane_theta(theta)
+
+        def one(ul, upl, th, ax):
+            return self.jacobian(form, ul, upl, {**shared, **th}, aux=ax,
+                                 dtype=dtype).flat
+
+        flat = vmap(one, in_dims=(0, 0, 0, None if aux is None else 0))(
+            u, u_prev, lane, aux)
+        return BlockELL(adj=self.dev["adj"], flat=flat,
+                        diag_slot=self.dev["diag_slot"])
 
     def jacobian(self, form: WeakForm, u, u_prev, theta,
                  aux=None, dtype=None) -> BlockELL:

@@ -43,6 +43,10 @@ class DirichletBC(NamedTuple):
             torch.as_tensor(mask, device=device),
             torch.as_tensor(vals, dtype=torch.float64, device=device))
 
+    def with_values(self, values: torch.Tensor) -> "DirichletBC":
+        """Replace the value array (e.g. per-step updates)."""
+        return DirichletBC(self.mask, values)
+
     def set_value(self, verts, fld: int, value) -> "DirichletBC":
         """Functionally update the value on a vertex set; ``value`` may be a
         float or a 0-d tensor on the BC's device."""
@@ -60,7 +64,11 @@ class DirichletBC(NamedTuple):
         return torch.where(self.mask, u - self.values, r)
 
     def apply_to_jacobian(self, J: BlockELL) -> BlockELL:
-        """Zero constrained rows and place 1 on their diagonal entries."""
+        """Zero constrained rows and place 1 on their diagonal entries (in
+        every lane of a lane-batched matrix: the rows depend on the mask
+        alone)."""
+        if J.flat.dim() == 4:
+            return self._apply_to_lane_jacobian(J)
         N, f, Kf = J.flat.shape
         flat = torch.where(self.mask[:, :, None],
                            torch.zeros((), dtype=J.flat.dtype,
@@ -76,6 +84,16 @@ class DirichletBC(NamedTuple):
         flat[rows, rr, cols] = vals
         return BlockELL(adj=J.adj, flat=flat, diag_slot=J.diag_slot)
 
+    def _apply_to_lane_jacobian(self, J: BlockELL) -> BlockELL:
+        V, N, f, Kf = J.flat.shape
+        dev = J.flat.device
+        flat = torch.where(self.mask[:, :, None],
+                           torch.zeros((), dtype=J.flat.dtype, device=dev),
+                           J.flat)
+        rows, rr = torch.nonzero(self.mask, as_tuple=True)
+        flat[:, rows, rr, J.diag_slot[rows] * f + rr] = 1.0
+        return BlockELL(adj=J.adj, flat=flat, diag_slot=J.diag_slot)
+
     def project(self, u: torch.Tensor) -> torch.Tensor:
         """Force constrained dofs to their values."""
         return torch.where(self.mask, self.values, u)
@@ -88,6 +106,10 @@ class ArithDirichletBC(NamedTuple):
     Same semantics as :class:`DirichletBC` (the mask is 0/1, so the blends
     are exact).  ``mask`` (bool) is kept for the Jacobian row rewrite,
     which depends only on the sparsity, never on the values.
+
+    Lanes: a value of shape (V,) (one per sweep lane) makes ``values``
+    (V, N, fields); the blends then act on (V, N, fields) states and the
+    Jacobian rewrite on every lane of a lane-batched matrix.
     """
 
     mask: torch.Tensor    # (N, fields) bool
@@ -96,10 +118,13 @@ class ArithDirichletBC(NamedTuple):
 
     def set_value_arith(self, verts, fld: int, value) -> "ArithDirichletBC":
         """Blend a scalar (a float or a 0-d tensor) onto a vertex set by
-        multiply-add with a one-hot mask."""
+        multiply-add with a one-hot mask; a (V,) tensor blends one value
+        per lane."""
         onehot = torch.zeros_like(self.maskf)
         onehot[torch.as_tensor(np.asarray(verts), dtype=torch.int64,
                                device=onehot.device), fld] = 1.0
+        if isinstance(value, torch.Tensor) and value.dim() == 1:
+            value = value[:, None, None]
         vals = self.values * (1.0 - onehot) + value * onehot
         return ArithDirichletBC(self.mask, self.maskf, vals)
 

@@ -8,7 +8,9 @@ Kernels:
   matvec of the carried-mode f32 chord GMRES (``solve.slab.slab_apply_f32``)
   and of ``fem.assembly.BlockELL.matvec`` on CUDA tensors: the f64 GMRES
   of the exact slab path, of the 1D ``solve.linear.tridiag_mp_solve`` and
-  of the Krylov fallbacks (every AMG level included).
+  of the Krylov fallbacks (every AMG level included); over a lane axis
+  (one launch for the V lanes of a batched sweep) it is the matvec of
+  ``solve.slab.slab_apply_lanes``.
 """
 
 from gmpnp_tpu_torch.ops.ell_spmv import (

@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # (name, restype, argtypes) of every C entry point
 _SIGNATURES = tuple(
     (name, ctypes.c_int,
-     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+     + [ctypes.c_longlong, ctypes.c_void_p])
     for name in ("ell_spmv_f32", "ell_spmv_f64"))
 
 _lib = None

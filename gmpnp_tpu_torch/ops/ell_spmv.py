@@ -23,10 +23,16 @@ Any element-aligned contiguous operand is taken: a view whose pointer is
 not 16-byte aligned goes through the kernel's element-sized copies.
 Measured times and the share of the bound reached: ``PERF.md`` section 6.
 
+Lanes: ``flat`` (V, N, f, K*f) and ``x`` (V, N, f) with one ``adj`` take
+one launch for the V lanes of a batched sweep (the reference's vmap of the
+Pallas kernel), each lane's result bitwise that of a one-lane launch.
+``lane_aligned`` lays lanes out so that each lane's matrix starts on a
+16-byte boundary (``lane_copy_paths`` says which copy each lane takes).
+
 ``ell_spmv`` launches the kernel for CUDA tensors (or raises) and runs the
 plain version ``ell_spmv_reference`` for CPU tensors only.  ``LAUNCHES``
 counts kernel launches per dtype and ``SHAPE_LAUNCHES`` per (N, K, f,
-dtype name).
+dtype name), or per (V, N, K, f, dtype name) for a launch over lanes.
 """
 
 from __future__ import annotations
@@ -115,20 +121,60 @@ def launch_plan(f: int, K: int, itemsize: int) -> LaunchPlan:
 def ell_spmv_reference(flat: torch.Tensor, adj: torch.Tensor,
                        x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: ``einsum('nrk,nk->nr', flat, x[adj])`` — the
-    same op as the reference's non-TPU branch and ``BlockELL.matvec``."""
+    same op as the reference's non-TPU branch and ``BlockELL.matvec``.
+    Over lanes (flat (V, N, f, K*f), x (V, N, f)) the same einsum runs on
+    the V*N rows, so each lane's rows are computed as one lane's are."""
+    if flat.dim() == 4:
+        V, N, f, Kf = flat.shape
+        xg = x[:, adj].reshape(V * N, Kf)
+        return torch.einsum("nrk,nk->nr", flat.reshape(V * N, f, Kf),
+                            xg).reshape(V, N, f)
     N, f, Kf = flat.shape
     xg = x[adj].reshape(N, Kf)
     return torch.einsum("nrk,nk->nr", flat, xg)
 
 
+def lane_aligned(flat: torch.Tensor) -> torch.Tensor:
+    """Lanes ``flat`` (V, N, f, K*f) copied into a buffer whose lane stride
+    is a whole number of ``align_vertices`` block rows, so that every
+    lane's matrix starts on a 16-byte boundary (the kernel's bulk copies);
+    returns the (V, N, f, K*f) view.  A stride that is aligned already, or
+    one lane, returns ``flat`` itself."""
+    V, N, f, Kf = flat.shape
+    align = align_vertices(f, Kf // f, flat.element_size())
+    if V == 1 or (N % align == 0 and flat.is_contiguous()):
+        return flat
+    n_pad = -(-N // align) * align
+    buf = torch.empty((V, n_pad, f, Kf), dtype=flat.dtype,
+                      device=flat.device)
+    buf[:, :N] = flat
+    return buf[:, :N]
+
+
+def lane_copy_paths(flat: torch.Tensor):
+    """Per lane of ``flat`` (V, N, f, K*f): 'bulk' where the kernel copies
+    its tiles with ``cp.async.bulk`` (the lane's matrix on a 16-byte
+    boundary and whole 16-byte tiles), else 'element'."""
+    V, N, f, Kf = flat.shape
+    size = flat.element_size()
+    tile = launch_plan(f, Kf // f, size).tile
+    whole = tile * f * Kf * size % 16 == 0
+    return ["bulk" if whole and (flat.data_ptr() + v * flat.stride(0) * size)
+            % 16 == 0 else "element" for v in range(V)]
+
+
 def _check(flat: torch.Tensor, adj: torch.Tensor, x: torch.Tensor) -> None:
-    if flat.dim() != 3 or adj.dim() != 2 or x.dim() != 2:
+    lanes = flat.dim() == 4
+    if (flat.dim() != x.dim() + 1 or x.dim() not in (2, 3)
+            or adj.dim() != 2):
         raise ValueError(
-            f"ell_spmv wants flat (N, f, K*f), adj (N, K), x (N, f); got "
+            f"ell_spmv wants flat (N, f, K*f), adj (N, K), x (N, f), or over "
+            f"lanes flat (V, N, f, K*f), x (V, N, f); got "
             f"{tuple(flat.shape)}, {tuple(adj.shape)}, {tuple(x.shape)}")
-    N, f, Kf = flat.shape
+    N, f, Kf = flat.shape[-3:]
     K = adj.shape[1]
-    if adj.shape[0] != N or Kf != K * f or tuple(x.shape) != (N, f):
+    if (adj.shape[0] != N or Kf != K * f
+            or tuple(x.shape) != tuple(flat.shape[:-1])):
         raise ValueError(
             f"ell_spmv shape mismatch: flat {tuple(flat.shape)}, "
             f"adj {tuple(adj.shape)}, x {tuple(x.shape)}")
@@ -142,9 +188,13 @@ def _check(flat: torch.Tensor, adj: torch.Tensor, x: torch.Tensor) -> None:
     if not (flat.device == adj.device == x.device):
         raise ValueError(f"ell_spmv operands on different devices: "
                          f"{flat.device}, {adj.device}, {x.device}")
-    if not (flat.is_contiguous() and adj.is_contiguous()
-            and x.is_contiguous()):
-        raise ValueError("ell_spmv operands must be contiguous")
+    lane_ok = not lanes or (flat[0].is_contiguous()
+                            and flat.stride(0) >= N * f * Kf)
+    if not ((flat.is_contiguous() or (lanes and lane_ok))
+            and adj.is_contiguous() and x.is_contiguous()):
+        raise ValueError("ell_spmv operands must be contiguous (over lanes: "
+                         "each lane's matrix contiguous, lanes apart by at "
+                         "least one matrix)")
 
 
 def ell_spmv(flat: torch.Tensor, adj: torch.Tensor,
@@ -153,8 +203,10 @@ def ell_spmv(flat: torch.Tensor, adj: torch.Tensor,
 
     flat (N, f, K*f) float32|float64, adj (N, K) int32, x (N, f) of flat's
     dtype, all contiguous on one device (a view with a storage offset is
-    fine) -> y (N, f).  CUDA tensors launch the kernel on the current
-    stream; CPU tensors take the plain version."""
+    fine) -> y (N, f).  Over lanes: flat (V, N, f, K*f) (each lane
+    contiguous; ``lane_aligned`` pads the lane stride), x (V, N, f) ->
+    y (V, N, f), one launch.  CUDA tensors launch the kernel on the
+    current stream; CPU tensors take the plain version."""
     _check(flat, adj, x)
     if flat.device.type == "cpu":
         return ell_spmv_reference(flat, adj, x)
@@ -162,22 +214,26 @@ def ell_spmv(flat: torch.Tensor, adj: torch.Tensor,
         raise ValueError(f"ell_spmv runs on cuda or cpu, got {flat.device}")
     from gmpnp_tpu_torch.ops._build import load_library
 
-    N, f, Kf = flat.shape
-    y = torch.empty((N, f), dtype=flat.dtype, device=flat.device)
+    lanes = flat.shape[0] if flat.dim() == 4 else 1
+    N, f, Kf = flat.shape[-3:]
+    y = torch.empty(x.shape, dtype=flat.dtype, device=flat.device)
     if N == 0 or f == 0:
         return y
     K = Kf // f
     plan = launch_plan(f, K, flat.element_size())
     lib = load_library()
     fn = lib.ell_spmv_f32 if flat.dtype == torch.float32 else lib.ell_spmv_f64
+    stride = flat.stride(0) if flat.dim() == 4 else N * f * Kf
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream(flat.device).cuda_stream
         err = fn(flat.data_ptr(), adj.data_ptr(), x.data_ptr(), y.data_ptr(),
-                 N, K, f, plan.tile, plan.mode, stream)
+                 N, K, f, plan.tile, plan.mode, lanes, stride, stream)
     if err != 0:
         raise RuntimeError(f"ell_spmv kernel launch failed: CUDA error {err}")
     LAUNCHES[flat.dtype] += 1
     key = (N, K, f, str(flat.dtype).replace("torch.", ""))
+    if flat.dim() == 4:
+        key = (lanes,) + key
     SHAPE_LAUNCHES[key] = SHAPE_LAUNCHES.get(key, 0) + 1
     return y
 

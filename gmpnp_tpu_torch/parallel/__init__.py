@@ -2,8 +2,9 @@
 domain decomposition.
 
 Port of ``gmpnp_tpu.parallel``:
-- ``sweep``: lanes run one after another on a card, or lane blocks on a
-  list of devices;
+- ``sweep``: lanes batched into one lane-batched transient on a card
+  (``chunk`` lanes a batch), run one after another (``chunk=0``), or
+  lane blocks on a list of devices;
 - ``shard``: z-slab partition of the pore over a line of ranks (one
   process, one rank per entry of a device list) with ppermute halo
   exchange, psum reductions and a distributed SPIKE direct solver.

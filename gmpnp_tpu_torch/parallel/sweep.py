@@ -6,14 +6,24 @@ parallelism is many independent cluster jobs over CLI flags
 voltage enters each lane only through ``theta`` and a Dirichlet value
 (``ArithDirichletBC``), so every lane shares one program.
 
-The reference batches lanes with ``jax.vmap`` (``chunk`` lanes at a time)
-or runs them one after another (``chunk=0``).  Here every lane runs alone,
-one after another on its device: a vmapped lane computes what the same lane
-computes alone, so results are per lane as the reference's.  ``chunk`` is
-kept for the one place it changes numbers: carried slab factorizations are
-downgraded to ``refresh='step'`` when the reference would have batched the
-lanes (``chunk != 0``).  Batching lanes into one batched Newton on one card
-is a performance change left for later.
+``chunk`` picks how the lanes run on one device, as in the reference
+(``_run_lanes``): ``chunk >= lanes`` runs all lanes as one lane-batched
+transient (the reference's ``vmap``), ``1 < chunk < lanes`` runs batches of
+``chunk`` lanes one after another (lanes padded to a multiple of ``chunk``
+with the last voltage, the pad dropped), and ``chunk`` 0 or 1 runs the
+lanes one at a time.  A batched transient carries every state with a
+leading lane axis (V, N, f): each Newton iteration is one residual, one
+Jacobian and one linear solve for all lanes, lanes that have converged are
+frozen, and the loop runs until every lane is done
+(``solve.timeloop.make_implicit_step_lanes``), as the reference's vmapped
+``while_loop``.  The default ``chunk`` is the reference's ``_auto_chunk``:
+every lane batched under 2,000 vertices, one at a time above.
+
+Under ``chunk != 0`` a carried pore factorization is downgraded to
+``refresh='step'``, as in the reference; a carried EDL configuration keeps
+its lanes one at a time (the reference would raise; ROADMAP queue 3 item
+8).  ``devices=`` runs the lanes one per device instead
+(``run_lanes_on_devices``).
 """
 
 from __future__ import annotations
@@ -30,7 +40,10 @@ from gmpnp_tpu_torch.solve.timeloop import (
     calibrate_refresh,
     make_carried_step,
     make_implicit_step,
+    make_implicit_step_lanes,
     run_transient,
+    run_transient_lanes,
+    stack_lane_theta,
 )
 
 
@@ -49,10 +62,27 @@ def _stack_lanes(outs, device):
     return u, stats
 
 
-def _run_lanes(single: Callable, volts: Sequence[float], device):
-    """Run ``single(voltage) -> (u_hist, stats)`` for every lane, one after
-    another, and stack the lanes."""
-    return _stack_lanes([single(float(v)) for v in volts], device)
+def _run_lanes(single: Callable, batched: Optional[Callable],
+               volts: Sequence[float], chunk: int, device):
+    """Run the lanes in the reference's three modes: ``batched(voltages) ->
+    (u_hist (V, steps, N, f), stats of (V, steps))`` over all lanes when
+    ``chunk >= lanes``, over batches of ``chunk`` lanes one after another
+    when ``1 < chunk < lanes`` (padded with the last voltage, the pad
+    dropped); ``single(voltage) -> (u_hist, stats)`` lane after lane when
+    ``chunk`` is 0 or 1 or there is no ``batched``."""
+    volts = [float(v) for v in volts]
+    lanes = len(volts)
+    if chunk <= 1 or batched is None:
+        return _stack_lanes([single(v) for v in volts], device)
+    if chunk >= lanes:
+        return batched(volts)
+    padded = volts + volts[-1:] * ((-lanes) % chunk)
+    outs = [batched(padded[i:i + chunk])
+            for i in range(0, len(padded), chunk)]
+    u = torch.cat([o[0] for o in outs])[:lanes]
+    stats = StepStats(*(np.concatenate([o[1][i] for o in outs])[:lanes]
+                        for i in range(len(StepStats._fields))))
+    return u, stats
 
 
 def _default_devices():
@@ -102,7 +132,8 @@ def _sweep_newton(newton):
     growth rule accepts exactly the plain damped-Newton step on every
     iteration whose residual grows by < 10x, so steps with no rejection
     keep the plain iterate sequence.  (The reference also forces its
-    ``loop='while'``; the port's Newton has one loop form.)"""
+    ``loop='while'``; the port's Newton loops are while loops, single-lane
+    and batched.)"""
     if newton.backtracking == 0:
         newton = dataclasses.replace(newton, backtracking=4, bt_growth=10.0)
     return newton
@@ -156,6 +187,44 @@ def _lane_runner(prog, step_args, lin, n, carried, extra0, bc_of_theta,
     return single
 
 
+def _batched_runner(prog, step_args, lin, n, extra0, bc_of_theta,
+                    update_carry=None):
+    """batched(voltages) -> (u_hist (V, steps, N, f), stats of (V, steps)):
+    the lanes as one lane-batched transient from the cold state.  The
+    per-step parameters are the model's own, lane by lane
+    (``_theta_of_carry`` and ``update_carry`` of each lane's state), joined
+    into one lane theta."""
+    space, form, newton = step_args
+    step = make_implicit_step_lanes(space, form, newton, lin,
+                                    bc_of_theta=bc_of_theta)
+
+    def batched(volts):
+        V = len(volts)
+        dev = prog.device
+
+        def theta_of(carry, i):
+            u, extras = carry
+            thetas = [prog._theta_of_carry((u[v], extras[v]), i)
+                      for v in range(V)]
+            for th, volt in zip(thetas, volts):
+                th["voltage"] = volt
+            return stack_lane_theta(thetas, dev)
+
+        def update(extras, u, i):
+            if update_carry is None:
+                return extras
+            return [update_carry(e, u[v], i) for v, e in enumerate(extras)]
+
+        u0 = prog.initial_state()
+        u0 = u0.expand((V,) + tuple(u0.shape)).clone()
+        _, ys = run_transient_lanes(step, (u0, [extra0] * V), n,
+                                    update_carry=update,
+                                    theta_of_carry=theta_of)
+        return ys
+
+    return batched
+
+
 def run_edl_voltage_sweep(
     cfg: "edl_1d.EDL1DConfig",
     voltages: Sequence[float],
@@ -165,13 +234,13 @@ def run_edl_voltage_sweep(
     device="cuda",
     info: Optional[dict] = None,
 ):
-    """1D EDL solve over OHP voltage multipliers, lane by lane.
+    """1D EDL solve over OHP voltage multipliers.
 
-    chunk: the reference's lanes per batch; every lane runs alone here and
-    no EDL setting depends on it, so it is accepted and unused.
-    devices: run lane-per-device over these devices instead
-    (run_lanes_on_devices).  ``info``, when given, receives the resolved
-    refresh mode (and the ``refresh='auto'`` calibration).
+    chunk: lanes per batch (None = ``_auto_chunk``; see ``_run_lanes``); a
+    carried configuration runs its lanes one at a time whatever ``chunk``
+    is.  devices: run lane-per-device over these devices instead
+    (run_lanes_on_devices).  ``info``, when given, receives the chunk, the
+    resolved refresh mode (and the ``refresh='auto'`` calibration).
     Returns (u_hist (V, steps, N, 7), stats batched over V).
     """
     devices = None if devices is None else [torch.device(d) for d in devices]
@@ -196,7 +265,10 @@ def run_edl_voltage_sweep(
         prog.initial_state(),
         _theta_with_voltage(prog._theta_of_carry, float(voltages[0])), info)
     carried = lin.kind == "tridiag_cr" and lin.refresh == "carried"
+    if chunk is None:
+        chunk = _auto_chunk(len(voltages), prog.space.num_vertices)
     if info is not None:
+        info["chunk"] = chunk
         info["refresh"] = lin.refresh
 
     def single_on(dev):
@@ -206,7 +278,10 @@ def run_edl_voltage_sweep(
 
     if lane_per_device:
         return run_lanes_on_devices(single_on, voltages, devices)
-    return _run_lanes(single_on(home), voltages, home)
+    batched = None if carried else _batched_runner(
+        prog, (prog.space, prog.form, newton), lin, n, chf0, bc_of(prog),
+        update_carry=prog._update_carry)
+    return _run_lanes(single_on(home), batched, voltages, chunk, home)
 
 
 def run_pore_voltage_sweep(
@@ -218,11 +293,11 @@ def run_pore_voltage_sweep(
     device="cuda",
     info: Optional[dict] = None,
 ):
-    """3D GMPNP pore solve over wall voltage multipliers, lane by lane —
-    the BASELINE config-5 sweep (voltage x cation; the cation varies in
+    """3D GMPNP pore solve over wall voltage multipliers — the BASELINE
+    config-5 sweep (voltage x cation; the cation varies in
     ``run_pore_voltage_cation_sweep``).
 
-    chunk: the reference's lanes per batch (None = ``_auto_chunk``); a
+    chunk: lanes per batch (None = ``_auto_chunk``; see ``_run_lanes``); a
     carried slab factorization is downgraded to ``refresh='step'`` when
     ``chunk != 0`` and the lanes are not per device, as in the reference.
     devices: run lane-per-device over these devices (lanes must divide
@@ -275,7 +350,9 @@ def run_pore_voltage_sweep(
 
     if lane_per_device:
         return run_lanes_on_devices(single_on, voltages, devices)
-    return _run_lanes(single_on(home), voltages, home)
+    batched = None if carried else _batched_runner(
+        prog, (prog.space, prog.form, newton), lin, n, 0.0, bc_of(prog))
+    return _run_lanes(single_on(home), batched, voltages, chunk, home)
 
 
 def run_pore_voltage_cation_sweep(
@@ -286,8 +363,9 @@ def run_pore_voltage_cation_sweep(
     chunk: Optional[int] = None,
     device="cuda",
 ) -> Dict[str, tuple]:
-    """voltage x cation sweep: a voltage sweep per cation (the cation
-    changes the program's constants)."""
+    """voltage x cation sweep: a voltage sweep per cation, each run in the
+    ``chunk`` mode (the cation changes the program's constants, so it stays
+    an outer loop, as in the reference)."""
     out = {}
     for cat in cations:
         c = dataclasses.replace(cfg, cation=cat)

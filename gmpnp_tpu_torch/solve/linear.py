@@ -250,6 +250,153 @@ def tridiag_mp_solve(ell: BlockELL, rhs: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Block tridiagonal over sweep lanes: (V, N, f, f) bands, (V, N, f) vectors
+# ---------------------------------------------------------------------------
+#
+# The lane versions of the CR factor / apply / solve: every level is one
+# batched call over the V lanes and the level's rows, so V lanes take the
+# launches of one.  Each lane computes what the single-lane function
+# computes for it (the same operations, with a leading lane axis).
+
+def _mvl(A, x):
+    """Batched (V, n, f, f) @ (V, n, f)."""
+    return torch.einsum("vnij,vnj->vni", A, x)
+
+
+def block_tridiag_from_ell_lanes(ell: BlockELL):
+    """``block_tridiag_from_ell`` of a lane-batched BlockELL: (lower, diag,
+    upper), each (V, N, f, f)."""
+    V, N, f, Kf = ell.flat.shape
+    K = Kf // f
+    assert K <= 3, "not a tridiagonal pattern"
+    dev = ell.flat.device
+    cols = torch.arange(f, device=dev)
+
+    def slot_block(slot):
+        idx = slot[:, None, None] * f + cols[None, None, :]
+        return torch.gather(ell.flat, 3, idx.expand(V, N, f, f))
+
+    rows = torch.arange(N, device=dev)
+    zero = torch.zeros((), dtype=ell.flat.dtype, device=dev)
+    diag = slot_block(ell.diag_slot)
+    lower = slot_block(torch.clamp(ell.diag_slot - 1, 0, K - 1))
+    upper = slot_block(torch.clamp(ell.diag_slot + 1, 0, K - 1))
+    lower = torch.where((rows > 0)[:, None, None], lower, zero)
+    upper = torch.where((rows < N - 1)[:, None, None], upper, zero)
+    return lower, diag, upper
+
+
+def _identity_pad_lanes(A, B, C, n_pad):
+    if n_pad == 0:
+        return A, B, C
+    V, _, f, _ = B.shape
+    eye = torch.eye(f, dtype=B.dtype, device=B.device).expand(V, n_pad, f, f)
+    zed = torch.zeros((V, n_pad, f, f), dtype=B.dtype, device=B.device)
+    return (torch.cat([A, zed], 1), torch.cat([B, eye], 1),
+            torch.cat([C, zed], 1))
+
+
+def block_tridiag_solve_cr_lanes(lower, diag, upper, rhs):
+    """``block_tridiag_solve_cr`` over lanes: (V, N, f, f) bands, rhs
+    (V, N, f) -> x (V, N, f)."""
+    dtype, dev = diag.dtype, diag.device
+    V, N, f, _ = diag.shape
+    M = _pow2(N)
+    A, B, C = _identity_pad_lanes(lower, diag, upper, M - N)
+    D = torch.cat([rhs, torch.zeros((V, M - N, f), dtype=dtype, device=dev)],
+                  1)
+
+    eye1 = torch.eye(f, dtype=dtype, device=dev).expand(V, 1, f, f)
+    zed1 = torch.zeros((V, 1, f, f), dtype=dtype, device=dev)
+    zv1 = torch.zeros((V, 1, f), dtype=dtype, device=dev)
+    stack = []
+    while A.shape[1] > 1:
+        m = A.shape[1]
+        Ap = torch.cat([zed1, A, zed1], 1)
+        Bp = torch.cat([eye1, B, eye1], 1)
+        Cp = torch.cat([zed1, C, zed1], 1)
+        Dp = torch.cat([zv1, D, zv1], 1)
+        ev, lo, hi = slice(1, m, 2), slice(0, m - 1, 2), slice(2, m + 1, 2)
+        alpha = range_clamp(Ap[:, ev] @ block_inv(Bp[:, lo]))
+        gamma = range_clamp(Cp[:, ev] @ block_inv(Bp[:, hi]))
+
+        A_new = range_clamp(-alpha @ Ap[:, lo])
+        B_new = range_clamp(Bp[:, ev] - alpha @ Cp[:, lo]
+                            - gamma @ Ap[:, hi])
+        C_new = range_clamp(-gamma @ Cp[:, hi])
+        D_new = range_clamp(Dp[:, ev] - _mvl(alpha, Dp[:, lo])
+                            - _mvl(gamma, Dp[:, hi]))
+
+        stack.append((A, B, C, D))
+        A, B, C, D = A_new, B_new, C_new, D_new
+
+    x = block_solve(B, D)                           # (V, 1, f)
+
+    for A_l, B_l, C_l, D_l in reversed(stack):
+        m = A_l.shape[1]
+        x_even = x
+        x_right = torch.cat([x_even[:, 1:], zv1], 1)
+        rhs_od = range_clamp(D_l[:, 1::2] - _mvl(A_l[:, 1::2], x_even)
+                             - _mvl(C_l[:, 1::2], x_right))
+        x_odd = range_clamp(block_solve(B_l[:, 1::2], rhs_od))
+        x = torch.stack([x_even, x_odd], dim=2).reshape(V, m, f)
+
+    return x[:, :N]
+
+
+def block_tridiag_factor_cr_lanes(lower, diag, upper) -> CRFactors:
+    """``block_tridiag_factor_cr`` over lanes: every factor gains the lane
+    axis ((V, h, f, f) per level, ``Binv_top`` (V, f, f))."""
+    dtype, dev = diag.dtype, diag.device
+    V, N, f, _ = diag.shape
+    A, B, C = _identity_pad_lanes(lower, diag, upper, _pow2(N) - N)
+
+    eye1 = torch.eye(f, dtype=dtype, device=dev).expand(V, 1, f, f)
+    zed1 = torch.zeros((V, 1, f, f), dtype=dtype, device=dev)
+    levels = []
+    while A.shape[1] > 1:
+        A_od, B_od, C_od = A[:, 1::2], B[:, 1::2], C[:, 1::2]
+        Binv_od = block_inv(B_od)
+        Binv_left = torch.cat([eye1, Binv_od[:, :-1]], 1)
+        alpha = range_clamp(A[:, 0::2] @ Binv_left)
+        gamma = range_clamp(C[:, 0::2] @ Binv_od)
+        levels.append(_CRLevel(alpha, gamma, A_od, C_od, Binv_od))
+        A_left = torch.cat([zed1, A_od[:, :-1]], 1)
+        C_left = torch.cat([zed1, C_od[:, :-1]], 1)
+        A, B, C = (range_clamp(-alpha @ A_left),
+                   range_clamp(B[:, 0::2] - alpha @ C_left - gamma @ A_od),
+                   range_clamp(-gamma @ C_od))
+    return CRFactors(levels=tuple(levels), Binv_top=block_inv(B[:, 0]))
+
+
+def block_tridiag_apply_cr_lanes(factors: CRFactors, rhs: torch.Tensor):
+    """``block_tridiag_apply_cr`` over lanes: rhs (V, N, f)."""
+    V, N, f = rhs.shape
+    M = 2 ** len(factors.levels)
+    zv1 = torch.zeros((V, 1, f), dtype=rhs.dtype, device=rhs.device)
+    D = rhs
+    if M > N:
+        D = torch.cat([D, zv1.expand(V, M - N, f)], 1)
+
+    odd_rhs = []
+    for lev in factors.levels:
+        D_ev, D_od = D[:, 0::2], D[:, 1::2]
+        odd_rhs.append(D_od)
+        D_left = torch.cat([zv1, D_od[:, :-1]], 1)
+        D = range_clamp(D_ev - _mvl(lev.alpha, D_left)
+                        - _mvl(lev.gamma, D_od))
+
+    x = (factors.Binv_top @ D[:, 0, :, None])[:, None, :, 0]   # (V, 1, f)
+    for lev, D_od in zip(reversed(factors.levels), reversed(odd_rhs)):
+        x_right = torch.cat([x[:, 1:], zv1], 1)
+        r_od = range_clamp(D_od - _mvl(lev.A_od, x)
+                           - _mvl(lev.C_od, x_right))
+        x_odd = range_clamp(_mvl(lev.Binv_od, r_od))
+        x = torch.stack([x, x_odd], dim=2).reshape(V, 2 * x.shape[1], f)
+    return x[:, :N]
+
+
+# ---------------------------------------------------------------------------
 # Preconditioners
 # ---------------------------------------------------------------------------
 
@@ -493,6 +640,136 @@ def gmres(
         total_it += k
         conv = bool(rnorm <= target)
     return KrylovResult(x.reshape(shape), float(rnorm), total_it, conv)
+
+
+def _norm_lanes(v):
+    return torch.sqrt(torch.sum(v * v, dim=-1))
+
+
+def gmres_lanes(
+    matvec: Callable,
+    b: torch.Tensor,
+    Minv: Optional[Callable] = None,
+    tol: float = 1e-8,
+    atol: float = 0.0,
+    restart: int = 30,
+    maxiter: int = 300,
+    active: Optional[np.ndarray] = None,
+) -> KrylovResult:
+    """``gmres`` over sweep lanes: b (V, ...), ``matvec`` and ``Minv`` map
+    (V, ...) to (V, ...) (one batched call for all lanes).
+
+    Each lane has its own Arnoldi basis, Givens rotations, residual target
+    and stopping: a lane that meets its target (or, between cycles, spends
+    its ``maxiter``) is frozen while the others go on, as the lanes of the
+    reference's vmapped ``while_loop`` are.  Each Arnoldi step reads the
+    (V, j+2) block of new Hessenberg columns back to the host in one sync,
+    not one per lane.  ``active`` (V,) bool leaves the other lanes out
+    altogether (zero iterations, x = 0).  Returns a KrylovResult whose
+    ``resnorm``, ``iters`` and ``converged`` are (V,) numpy arrays."""
+    V = b.shape[0]
+    shape = b.shape
+    n = b[0].numel()
+    dtype = b.dtype
+    dev = b.device
+    nd = _NP_DTYPE[dtype]
+    tiny = nd(_TINY)
+    bflat = b.reshape(V, n)
+    if Minv is None:
+        Minv = lambda z: z
+    mv = lambda v: matvec(v.reshape(shape)).reshape(V, n)
+    pc = lambda v: Minv(v.reshape(shape)).reshape(V, n)
+
+    x = torch.zeros((V, n), dtype=dtype, device=dev)
+    bnorm = to_host(_norm_lanes(bflat)).astype(nd)
+    target = np.maximum(np.maximum(nd(tol) * bnorm, nd(atol)), tiny)
+    m = restart
+    live = (np.ones(V, bool) if active is None
+            else np.asarray(active, bool).copy())
+
+    rnorm = np.full(V, np.inf, nd)
+    total_it = np.zeros(V, np.int64)
+    conv = np.zeros(V, bool)
+    going = live & ~conv & (total_it < maxiter)
+    while going.any():
+        r = bflat - mv(x)
+        beta_t = _norm_lanes(r)
+        beta = to_host(beta_t).astype(nd)
+
+        zero = torch.zeros((), dtype=dtype, device=dev)
+        Vb = torch.zeros((V, m + 1, n), dtype=dtype, device=dev)
+        Vb[:, 0] = torch.where(
+            torch.as_tensor(going, device=dev)[:, None],
+            r / torch.clamp_min(beta_t, _TINY)[:, None], zero)
+        H = np.zeros((V, m + 1, m), nd)
+        cs = np.zeros((V, m), nd)
+        sn = np.zeros((V, m), nd)
+        g = np.zeros((V, m + 1), nd)
+        g[:, 0] = beta
+        done = (beta <= target) | ~going
+        k = np.zeros(V, np.int64)
+        for j in range(m):
+            if done.all():
+                break
+            step = ~done
+            # every lane steps on the device (a lane that is done computes
+            # rows it never uses, cleared before the update below), so the
+            # only sync is the read of the new columns
+            w = mv(pc(Vb[:, j]))
+            # CGS2 per lane; rows of a lane's basis beyond j are zero
+            h1 = torch.bmm(Vb, w[:, :, None])[:, :, 0]
+            w = w - torch.bmm(h1[:, None, :], Vb)[:, 0]
+            h2 = torch.bmm(Vb, w[:, :, None])[:, :, 0]
+            w = w - torch.bmm(h2[:, None, :], Vb)[:, 0]
+            hlast = _norm_lanes(w)
+            Vb[:, j + 1] = w / torch.clamp_min(hlast, _TINY)[:, None]
+            hcol_t = h1 + h2
+            hcol_t[:, j + 1] = hlast
+            hcol = to_host(hcol_t[:, :j + 2]).astype(nd)
+            # previous rotations, then the new one, lane by lane (the
+            # scalar arithmetic of ``gmres`` on (V,) arrays)
+            for i in range(j):
+                hi, hip = hcol[:, i].copy(), hcol[:, i + 1].copy()
+                hcol[:, i] = cs[:, i] * hi + sn[:, i] * hip
+                hcol[:, i + 1] = -sn[:, i] * hi + cs[:, i] * hip
+            denom = np.sqrt(hcol[:, j] ** 2 + hcol[:, j + 1] ** 2)
+            safe = np.maximum(denom, tiny)
+            pos = denom > 0
+            c = np.where(pos, hcol[:, j] / safe, nd(1.0))
+            sv = np.where(pos, hcol[:, j + 1] / safe, nd(0.0))
+            hcol[:, j] = c * hcol[:, j] + sv * hcol[:, j + 1]
+            hcol[:, j + 1] = 0.0
+            cs[:, j] = np.where(step, c, cs[:, j])
+            sn[:, j] = np.where(step, sv, sn[:, j])
+            gj = g[:, j].copy()
+            g[:, j] = np.where(step, c * gj, g[:, j])
+            g[:, j + 1] = np.where(step, -sv * gj, g[:, j + 1])
+            H[step, :j + 2, j] = hcol[step]
+            done = done | (step & (np.abs(g[:, j + 1]) <= target))
+            k += step
+
+        upd = going & (k > 0)
+        rnorm = np.where(going & (k == 0), beta, rnorm)
+        if upd.any():
+            Y = np.zeros((V, m), nd)
+            for lane in np.nonzero(upd)[0]:
+                Vb[lane, k[lane]:] = 0.0
+                used = np.arange(m) < k[lane]
+                Hsq = np.where(used[None, :] & used[:, None],
+                               H[lane, :m, :m], np.eye(m, dtype=nd))
+                gv = np.where(used, g[lane, :m], nd(0.0))
+                Y[lane] = triangular_solve_upper(Hsq, gv)
+            y_t = torch.as_tensor(Y, dtype=dtype).to(dev)
+            upd_t = torch.as_tensor(upd, device=dev)[:, None]
+            x = torch.where(upd_t, x + pc(torch.einsum(
+                "vmn,vm->vn", Vb[:, :m], y_t)), x)
+            rn = to_host(_norm_lanes(bflat - mv(x))).astype(nd)
+            rnorm = np.where(upd, rn, rnorm)
+        total_it += np.where(going, k, 0)
+        conv = np.where(going, rnorm <= target, conv)
+        going = live & ~conv & (total_it < maxiter)
+    return KrylovResult(x.reshape(shape), rnorm.astype(np.float64),
+                        total_it, conv)
 
 
 def bicgstab(

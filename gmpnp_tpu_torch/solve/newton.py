@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from gmpnp_tpu_torch.sync import to_host
@@ -140,6 +141,139 @@ def newton_solve(
         u=u,
         iterations=it,
         converged=converged(rn) or stalled_ok,
+        residual_norm=rn,
+        initial_residual_norm=n0,
+        linear_iters=lin,
+    )
+
+
+class NewtonLanesResult(NamedTuple):
+    """``NewtonResult`` of V lanes: ``u`` (V, ...), the rest (V,) numpy
+    arrays."""
+    u: torch.Tensor
+    iterations: np.ndarray
+    converged: np.ndarray
+    residual_norm: np.ndarray
+    initial_residual_norm: np.ndarray
+    linear_iters: np.ndarray
+
+
+def _l2_lanes(r):
+    """``_l2`` of every lane of r (V, ...) -> (V,)."""
+    a = r.reshape(r.shape[0], -1)
+    scale = torch.clamp_min(torch.max(torch.abs(a), dim=1).values, 1e-30)
+    return scale * torch.sqrt(torch.sum((a / scale[:, None]) ** 2, dim=1))
+
+
+def _lanes(mask, like):
+    """(V,) numpy bool -> a tensor that broadcasts over ``like`` (V, ...)."""
+    return torch.as_tensor(mask, device=like.device).reshape(
+        (-1,) + (1,) * (like.dim() - 1))
+
+
+def newton_solve_lanes(
+    residual_fn: Callable[[torch.Tensor], torch.Tensor],
+    linear_solve_fn: Callable,
+    u0: torch.Tensor,
+    rtol: float = 1e-4,
+    atol: float = 1e-4,
+    max_iter: int = 50,
+    relaxation: float = 1.0,
+    backtracking: int = 0,
+    bt_growth: float = 0.0,
+    carry_residual: bool = True,
+    du_max: float = 1.0e6,
+    stall_atol: float = None,
+    stall_iters: int = 4,
+) -> NewtonLanesResult:
+    """``newton_solve`` of V independent lanes at once (the reference's
+    vmapped ``while_loop``; its sweeps' loop='while').
+
+    residual_fn : u (V, ...) -> r (V, ...), one call for all lanes
+    linear_solve_fn : (u, r, active) -> (du, linear_iters (V,)); ``active``
+        (V,) bool names the lanes whose direction is used
+    u0 : (V, ...) initial iterates
+
+    Each lane keeps its own convergence test, du_max cap, backtracking
+    trials and acceptance and stall count.  The loop runs while any lane is
+    unconverged and under ``max_iter``; a lane that is done is frozen (its
+    iterate, residual and counts no longer change), as the vmapped
+    ``while_loop`` selects its old state.  Each iteration reads the (V,)
+    residual norms back once (plus once per further backtracking trial
+    that some lane still needs), whatever V is.
+    """
+    r = residual_fn(u0)
+    n0 = to_host(_l2_lanes(r))
+    V = n0.shape[0]
+
+    def converged(rn):
+        return (rn < atol) | (rn < rtol * n0)
+
+    carry_r = carry_residual and backtracking == 0
+    stall = stall_atol is not None
+    u, rn = u0, n0.copy()
+    it = np.zeros(V, np.int64)
+    lin = np.zeros(V, np.int64)
+    best, ct = n0.copy(), np.zeros(V, np.int64)
+
+    def done():
+        c = converged(rn)
+        if stall:
+            c = c | ((ct >= stall_iters) & (best < stall_atol))
+        return c
+
+    active = (it < max_iter) & ~done()
+    while active.any():
+        if not carry_r:
+            r = residual_fn(u)
+        du, klin = linear_solve_fn(u, r, active)
+        if du_max is not None:
+            mag = torch.amax(torch.abs(du.reshape(V, -1)), dim=1)
+            du = du * torch.clamp(
+                du_max / torch.clamp_min(mag, 1e-30), max=1.0).reshape(
+                    (-1,) + (1,) * (du.dim() - 1))
+        if backtracking > 0:
+            lams = [relaxation * 0.5 ** k for k in range(backtracking + 1)]
+            u_new, rn_new = u, rn.copy()
+            pending = active.copy()
+            for lam in lams:
+                u_try = u - lam * du
+                rn_try = to_host(_l2_lanes(residual_fn(u_try)))
+                if bt_growth > 0.0:
+                    armijo = rn_try <= bt_growth * rn
+                else:
+                    armijo = rn_try <= (1.0 - 1e-4 * lam) * rn
+                # per lane: the first accepted lambda wins, else the last
+                take = pending & (armijo | (lam == lams[-1]))
+                u_new = torch.where(_lanes(take, u), u_try, u_new)
+                rn_new = np.where(take, rn_try, rn_new)
+                pending &= ~take
+                if not pending.any():
+                    break
+        else:
+            u_try = u - relaxation * du
+            r_try = residual_fn(u_try)
+            rn_try = to_host(_l2_lanes(r_try))
+            keep = _lanes(active, u)
+            u_new = torch.where(keep, u_try, u)
+            r = torch.where(keep, r_try, r)
+            rn_new = np.where(active, rn_try, rn)
+        u = u_new
+        it += active
+        lin += np.where(active, np.asarray(klin, np.int64), 0)
+        if stall:
+            improved = rn_new < 0.95 * best
+            ct = np.where(active, np.where(improved, 0, ct + 1), ct)
+            best = np.where(active, np.minimum(best, rn_new), best)
+        rn = rn_new
+        active = (it < max_iter) & ~done()
+
+    stalled_ok = ((ct >= stall_iters) & (best < stall_atol) if stall
+                  else np.zeros(V, bool))
+    return NewtonLanesResult(
+        u=u,
+        iterations=it,
+        converged=converged(rn) | stalled_ok,
         residual_norm=rn,
         initial_residual_norm=n0,
         linear_iters=lin,

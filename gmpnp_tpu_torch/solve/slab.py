@@ -170,6 +170,20 @@ class SlabPlan:
         flat = xs.reshape(self.S * self.m_v, self.f)
         return flat[self._index(xs.device)["iperm"]]
 
+    def to_slabs_lanes(self, x: torch.Tensor) -> torch.Tensor:
+        """(V, N, f) -> (V, S, m), ``to_slabs`` of every lane."""
+        V = x.shape[0]
+        xp = torch.cat([x, torch.zeros((V, 1, self.f), dtype=x.dtype,
+                                       device=x.device)], dim=1)
+        return xp[:, self._index(x.device)["perm"]].reshape(V, self.S,
+                                                            self.m)
+
+    def from_slabs_lanes(self, xs: torch.Tensor) -> torch.Tensor:
+        """(V, S, m) -> (V, N, f), ``from_slabs`` of every lane."""
+        V = xs.shape[0]
+        flat = xs.reshape(V, self.S * self.m_v, self.f)
+        return flat[:, self._index(xs.device)["iperm"]]
+
     def bands(self, ell: BlockELL, dtype=torch.float32):
         """Relayout a BlockELL matrix into (lower, diag, upper) dense bands
         of shape (S, m, m) each, in ``dtype`` (tests; the factorization
@@ -242,6 +256,84 @@ def slab_factor_fused(ell: BlockELL, plan: SlabPlan,
         Als.append(A)
     return SlabFactors(Dinv=torch.stack(Dinvs), Cp=torch.stack(Cps),
                        Al=torch.stack(Als))
+
+
+def _band_of_slab_lanes_fn(ell: BlockELL, plan: SlabPlan,
+                           dtype=torch.float32):
+    """``_band_of_slab_fn`` of a lane-batched BlockELL: s -> (lower, diag,
+    upper) of slab ``s`` in every lane, each (V, m, m)."""
+    V = ell.lanes
+    N, K, f, _ = ell.shape4
+    m, m_v = plan.m, plan.m_v
+    dev = ell.flat.device
+    blk = ell.flat.reshape(V, N, f, K, f).transpose(2, 3).to(dtype)
+    blk = torch.cat([blk.reshape(V, N * K, f, f),
+                     torch.zeros((V, 1, f, f), dtype=dtype, device=dev)],
+                    dim=1)
+    bidx = plan._index(dev)["bidx"]
+    eye_band = torch.cat(
+        [torch.zeros((m, m), dtype=dtype, device=dev),
+         torch.eye(m, dtype=dtype, device=dev),
+         torch.zeros((m, m), dtype=dtype, device=dev)], dim=1)
+
+    def band_of_slab(s: int):
+        B4 = blk[:, bidx[s]]                      # (V, m_v, 3m_v, f, f)
+        B = B4.permute(0, 1, 3, 2, 4).reshape(V, m, 3 * m)
+        n_pad = (s + 1) * m_v - plan.N
+        if n_pad > 0:
+            B = B.clone()
+            B[:, m - n_pad * f:] = eye_band[m - n_pad * f:]
+        return B[:, :, :m], B[:, :, m:2 * m], B[:, :, 2 * m:]
+
+    return band_of_slab
+
+
+def _inv_refined_lanes(A: torch.Tensor) -> torch.Tensor:
+    """``_inv_refined`` of each lane's (m, m) block of A (V, m, m), one
+    inverse call per lane: on the H100 one batched ``torch.linalg.inv`` of
+    three 918 x 918 f32 blocks takes 2.1x the time of three single calls
+    (``python3 chip_smoke.py --profile``), so the lanes take the
+    single-lane call and its Newton-Schulz pass, lane by lane."""
+    return torch.stack([_inv_refined(a) for a in A])
+
+
+def slab_factor_fused_lanes(ell: BlockELL, plan: SlabPlan,
+                            dtype=torch.float32) -> SlabFactors:
+    """``slab_factor_fused`` of V lanes: the same S sequential steps, the
+    band gathers and products of each one batched call over the lanes, the
+    refined m x m inverses one per lane (``_inv_refined_lanes``), in full
+    f32 under ``full_f32_precision``.  Factors are (V, S, m, m)."""
+    V, m, S = ell.lanes, plan.m, plan.S
+    band_of_slab = _band_of_slab_lanes_fn(ell, plan, dtype)
+    Cp_prev = torch.zeros((V, m, m), dtype=dtype, device=ell.flat.device)
+    Dinvs, Cps, Als = [], [], []
+    for s in range(S):
+        A, Bd, C = band_of_slab(s)
+        Dinv = _inv_refined_lanes(Bd - A @ Cp_prev)
+        Cp_prev = Dinv @ C
+        Dinvs.append(Dinv)
+        Cps.append(Cp_prev)
+        Als.append(A)
+    return SlabFactors(Dinv=torch.stack(Dinvs, 1), Cp=torch.stack(Cps, 1),
+                       Al=torch.stack(Als, 1))
+
+
+def slab_solve_lanes(factors: SlabFactors, d: torch.Tensor) -> torch.Tensor:
+    """``slab_solve`` of V lanes: factors (V, S, m, m), d (V, S, m)."""
+    Dinvs, Cps, Al = factors
+    S = d.shape[1]
+    dp = torch.zeros((d.shape[0], d.shape[2], 1), dtype=d.dtype,
+                     device=d.device)
+    dps = []
+    for s in range(S):
+        dp = Dinvs[:, s] @ (d[:, s, :, None] - Al[:, s] @ dp)
+        dps.append(dp)
+    x = torch.zeros_like(dp)
+    xs = [None] * S
+    for s in range(S - 1, -1, -1):
+        x = dps[s] - Cps[:, s] @ x
+        xs[s] = x
+    return torch.stack(xs, 1)[..., 0]
 
 
 def slab_factor(lower: torch.Tensor, diag: torch.Tensor,
@@ -420,6 +512,52 @@ def slab_prepare(ell: BlockELL, plan: SlabPlan,
     factor = slab_factor_cr_fused if mode == "cr" else slab_factor_fused
     return SlabPrepared(ell_eq=ell_eq, Dinv0=Dinv0,
                         factors=factor(ell_eq, plan))
+
+
+def slab_prepare_lanes(ell: BlockELL, plan: SlabPlan) -> SlabPrepared:
+    """``slab_prepare`` (Thomas) of a lane-batched BlockELL: per-lane f64
+    equilibration, the f32 factorization of every lane at once, and the
+    equilibrated matrices laid out for the kernel's lane axis
+    (``ops.ell_spmv.lane_aligned``: every lane's matrix on a 16-byte
+    boundary)."""
+    from gmpnp_tpu_torch.ops.ell_spmv import lane_aligned
+
+    Dinv0 = block_inv(ell.diag_blocks())
+    ell_eq = ell.scale_rows(Dinv0)
+    ell_eq = BlockELL(ell_eq.adj, lane_aligned(ell_eq.flat),
+                      ell_eq.diag_slot)
+    return SlabPrepared(ell_eq=ell_eq, Dinv0=Dinv0,
+                        factors=slab_factor_fused_lanes(ell_eq, plan))
+
+
+def slab_apply_lanes(
+    prep: SlabPrepared,
+    rhs: torch.Tensor,
+    plan: SlabPlan,
+    tol: float = 1.0e-8,
+    max_refine: int = 40,
+    active=None,
+) -> SlabSolveResult:
+    """``slab_apply`` of V lanes (from ``slab_prepare_lanes``): rhs
+    (V, N, f); f64 GMRES over lanes (``gmres_lanes``: each lane stops on
+    its own) whose matvec is one launch of the kernel's lane axis, and the
+    f32 banded solve of every lane.  ``active`` (V,) bool leaves the other
+    lanes out.  ``resnorm``, ``iters`` and ``converged`` are (V,) arrays."""
+    from gmpnp_tpu_torch.solve.linear import gmres_lanes
+
+    out_dtype = rhs.dtype
+    b = torch.einsum("vnfg,vng->vnf", prep.Dinv0, rhs)
+
+    def solve32(r64):
+        ds = plan.to_slabs_lanes(r64.to(torch.float32))
+        xs = slab_solve_lanes(prep.factors, ds)
+        return plan.from_slabs_lanes(xs).to(out_dtype)
+
+    res = gmres_lanes(prep.ell_eq.matvec, b, Minv=solve32, tol=tol,
+                      restart=min(max_refine, 30), maxiter=max_refine,
+                      active=active)
+    return SlabSolveResult(x=res.x, resnorm=res.resnorm, iters=res.iters,
+                           converged=res.converged)
 
 
 def slab_apply(

@@ -35,21 +35,25 @@ from gmpnp_tpu_torch.solve.linear import (
     block_tridiag_apply_cr,
     block_tridiag_factor_cr,
     block_tridiag_from_ell,
+    block_tridiag_from_ell_lanes,
     block_tridiag_solve_cr,
+    block_tridiag_solve_cr_lanes,
     block_tridiag_solve_thomas,
     dense_solve,
     gmres,
     multicolor_ssor_preconditioner,
     tridiag_mp_solve,
 )
-from gmpnp_tpu_torch.solve.newton import newton_solve
+from gmpnp_tpu_torch.solve.newton import newton_solve, newton_solve_lanes
 from gmpnp_tpu_torch.solve.slab import (
     SlabPlan,
     full_f32_precision,
     slab_apply,
     slab_apply_f32,
     slab_direct_solve,
+    slab_apply_lanes,
     slab_prepare,
+    slab_prepare_lanes,
 )
 from gmpnp_tpu_torch.solve.smallblock import block_inv
 from gmpnp_tpu_torch.sync import to_host
@@ -306,6 +310,163 @@ def make_implicit_step(
         return res.u, stats
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# Sweep lanes: V independent transients of one program, batched
+# ---------------------------------------------------------------------------
+
+def stack_lane_theta(thetas, device):
+    """Per-lane step parameters -> one lane theta: a key whose value is the
+    same Python scalar in every lane stays that scalar; any other becomes a
+    tensor with a leading lane axis (V, ...) on ``device``."""
+    out = {}
+    for key in thetas[0]:
+        vals = [th[key] for th in thetas]
+        if (not any(isinstance(v, torch.Tensor) for v in vals)
+                and all(v == vals[0] for v in vals)):
+            out[key] = vals[0]
+        else:
+            out[key] = torch.stack([
+                torch.as_tensor(v, dtype=torch.float64, device=device)
+                for v in vals])
+    return out
+
+
+def lane_theta(theta, lane: int):
+    """Lane ``lane``'s own theta out of a lane theta."""
+    return {k: v[lane] if isinstance(v, torch.Tensor) else v
+            for k, v in theta.items()}
+
+
+def _lane_bc(bc, lane: int):
+    """Lane ``lane``'s own BC out of a lane BC (values (V, N, f))."""
+    if bc.values.dim() == 3:
+        return bc._replace(values=bc.values[lane])
+    return bc
+
+
+def _assemble_lanes(space: FemSpace, form: WeakForm, cfg: LinearConfig, bc,
+                    u, u_prev, theta) -> BlockELL:
+    """``_assemble`` of V lanes: one lane-batched BlockELL."""
+    aux = theta.get("_aux") if isinstance(theta, dict) else None
+    jdt = torch.float32 if cfg.jac_dtype == "f32" else None
+    return bc.apply_to_jacobian(
+        space.jacobian_lanes(form, u, u_prev, theta, aux=aux, dtype=jdt))
+
+
+def make_linear_solver_lanes(space: FemSpace, form: WeakForm,
+                             cfg: LinearConfig):
+    """Lane counterpart of ``make_linear_solver``: (bc, u_prev, theta) of V
+    lanes -> callable (u, r, active) -> (du (V, N, f), linear_iters (V,)).
+
+    Batched over the lanes: the 3D slab path (``slab_direct``, Thomas,
+    ``refresh`` 'iter' or 'step': one lane-batched Jacobian, factorization
+    and f64 GMRES over the kernel's lane axis) and the all-f64 1D CR solve
+    (``tridiag_cr``).  Every other kind runs each lane's own single-lane
+    solver, lane after lane, inside the batched Newton iteration."""
+    _validate_linear_config(cfg)
+    full_f32_precision()
+    if cfg.kind == "slab_direct" and cfg.slab_mode == "thomas" and (
+            cfg.refresh in ("iter", "step")):
+        plan = _slab_plan(space, cfg)
+
+        def solver(bc, u_prev, theta):
+            def prepare(u):
+                return slab_prepare_lanes(_assemble_lanes(
+                    space, form, cfg, bc, u, u_prev, theta), plan)
+
+            frozen = (prepare(bc.project(u_prev)) if cfg.refresh == "step"
+                      else None)
+
+            def lin(u, r, active):
+                prep = frozen if frozen is not None else prepare(u)
+                res = slab_apply_lanes(prep, r, plan, tol=cfg.tol,
+                                       max_refine=cfg.max_refine,
+                                       active=active)
+                return res.x, res.iters
+
+            return lin
+
+        return solver
+    if (cfg.kind == "tridiag_cr" and cfg.solve_dtype == "f64"
+            and cfg.refresh in ("iter", "step")):
+        def solver(bc, u_prev, theta):
+            def lin(u, r, active):
+                ell = _assemble_lanes(space, form, cfg, bc, u, u_prev, theta)
+                x = block_tridiag_solve_cr_lanes(
+                    *block_tridiag_from_ell_lanes(ell), r)
+                return x, np.zeros(r.shape[0], np.int64)
+            return lin
+
+        return solver
+
+    single = make_linear_solver(space, form, cfg)
+
+    def solver(bc, u_prev, theta):
+        lins = [single(_lane_bc(bc, v), u_prev[v], lane_theta(theta, v))
+                for v in range(u_prev.shape[0])]
+
+        def lin(u, r, active):
+            du = torch.zeros_like(r)
+            its = np.zeros(r.shape[0], np.int64)
+            for v in np.nonzero(active)[0]:
+                du[v], its[v] = lins[v](u[v], r[v])
+            return du, its
+
+        return lin
+
+    return solver
+
+
+def make_implicit_step_lanes(
+    space: FemSpace,
+    form: WeakForm,
+    newton_cfg: NewtonConfig,
+    linear_cfg: LinearConfig,
+    bc_of_theta: Callable[[Any], DirichletBC],
+):
+    """``make_implicit_step`` of V lanes: (u_prev (V, N, f), lane theta)
+    -> (u_new (V, N, f), StepStats of (V,) arrays).  One Newton iteration is
+    one batched residual, Jacobian and linear solve for all lanes
+    (``newton_solve_lanes``); ``bc_of_theta`` takes the lane theta and
+    gives a BC with (V, N, f) values (``ArithDirichletBC``)."""
+    lin_builder = make_linear_solver_lanes(space, form, linear_cfg)
+
+    def step(u_prev, theta):
+        bc = bc_of_theta(theta)
+        aux = theta.get("_aux") if isinstance(theta, dict) else None
+
+        def residual(u):
+            return bc.apply_to_residual(
+                space.residual_lanes(form, u, u_prev, theta, aux=aux), u)
+
+        lin = lin_builder(bc, u_prev, theta)
+        res = newton_solve_lanes(residual, lin, bc.project(u_prev),
+                                 max_iter=newton_cfg.max_iter,
+                                 **_newton_kwargs(newton_cfg))
+        stats = StepStats(
+            newton_iters=res.iterations,
+            converged=res.converged,
+            residual_norm=res.residual_norm,
+            linear_iters=res.linear_iters,
+            dt_scale=np.ones(len(res.iterations)))
+        return res.u, stats
+
+    return step
+
+
+def run_transient_lanes(step: Callable, carry0, n_steps: int,
+                        update_carry: Optional[Callable] = None,
+                        theta_of_carry: Optional[Callable] = None):
+    """``run_transient`` of a lane step (``make_implicit_step_lanes``), with
+    the records' lane axis first: returns (final_carry, (u_hist (V, steps,
+    N, f), StepStats of (V, steps) arrays))."""
+    final, (u_hist, stats) = run_transient(
+        step, carry0, n_steps, update_carry=update_carry,
+        theta_of_carry=theta_of_carry)
+    return final, (u_hist.transpose(0, 1),
+                   StepStats(*(np.asarray(a).T for a in stats)))
 
 
 class ChordCarry(NamedTuple):

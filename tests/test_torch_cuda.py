@@ -121,6 +121,44 @@ def test_kernel_on_a_side_stream(cuda_device, N, K, f, dtype, tol):
     assert float((y_side - ref).norm() / ref.norm()) <= tol
 
 
+# the lane axis: the batched pore sweep's shape (3 lanes of the L=50 nm,
+# R=5 nm pore, f=9), the reaction-diffusion pore's f=7, the 1D models' K=3,
+# a ragged edge; each lane bitwise equal to a one-lane launch of its own
+# matrix, from a contiguous (V, N, f, K*f) tensor (lanes 1.. miss the
+# 16-byte boundary and take the element-sized copies) and from the
+# lane-aligned layout (every lane bulk-copied).  Twin tolerances: 2.5e-7
+# (f32) and 5e-16 (f64) relative L2 per lane, the kernel's other summation
+# order on random data (measured <= 1.2e-7 / 2.5e-16 on the card)
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 2.5e-7),
+                                       (np.float64, 5e-16)])
+@pytest.mark.parametrize("V,N,K,f", [(3, 2501, 15, 9), (3, 2501, 15, 7),
+                                     (2, 5991, 3, 7), (3, 53, 15, 8)])
+def test_kernel_lanes_bitwise_per_lane(cuda_device, V, N, K, f, dtype, tol):
+    from gmpnp_tpu_torch.ops import SHAPE_LAUNCHES
+    from gmpnp_tpu_torch.ops.ell_spmv import lane_aligned, lane_copy_paths
+
+    rng = np.random.default_rng(8)
+    flat = torch.as_tensor(rng.normal(size=(V, N, f, K * f)).astype(dtype),
+                           device=cuda_device)
+    adj = torch.as_tensor(rng.integers(0, N, size=(N, K)).astype(np.int32),
+                          device=cuda_device)
+    x = torch.as_tensor(rng.normal(size=(V, N, f)).astype(dtype),
+                        device=cuda_device)
+    single = torch.stack([ell_spmv(flat[v], adj, x[v]) for v in range(V)])
+    ref = ell_spmv_reference(flat, adj, x)
+    aligned = lane_aligned(flat)
+    assert lane_copy_paths(aligned) == ["bulk"] * V
+    key = (V, N, K, f, str(flat.dtype).replace("torch.", ""))
+    for operand in (flat, aligned):
+        n0 = SHAPE_LAUNCHES.get(key, 0)
+        y = ell_spmv(operand, adj, x)
+        torch.cuda.synchronize()
+        assert SHAPE_LAUNCHES[key] == n0 + 1
+        assert torch.equal(y, single)
+        for v in range(V):
+            assert float((y[v] - ref[v]).norm() / ref[v].norm()) <= tol
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
 def test_cr_factor_apply_card_matches_cpu(cuda_device, dtype, tol):
