@@ -5,7 +5,8 @@
 Phases (each prints its lines; any failure raises and exits non-zero):
 
 1. card: ``nvidia-smi`` name and power limit, torch's device name;
-2. build: the CUDA kernels compiled from ``gmpnp_tpu_torch/csrc``;
+2. build: the CUDA kernels compiled from ``gmpnp_tpu_torch/csrc`` (one
+   ``nvcc`` per source, all started together, linked into one library);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of every path of phase 4 (the L=50 nm, R=5 nm pore: N=2,501,
    K=15, f=9 for GMPNP and f=7 for reaction-diffusion, each on the kernel
@@ -27,10 +28,23 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    copy path each lane takes, the twin, times, the bound and the library
    call (the lanes as one block-diagonal ``torch.sparse_bsr_tensor``); and
    ragged, single-neighbour and misaligned shapes (f=5 and f=7 at K=3 and
-   K=15 among them) for correctness and bitwise repeatability only;
-4. the paths, each with every launch count set to 0 before it and read
-   after it; per-step wall time, Newton and linear iterations, host syncs
-   and kernel launches; outputs present and finite:
+   K=15 among them) for correctness and bitwise repeatability only.
+   Then the sorted-segment sum and the batched block inverse at every
+   path shape (the pores' and the EDL's residual and Jacobian rows, three
+   lanes of the pore Jacobian; the slab equilibration's (2,501, 9 or 7)
+   blocks, the 1D cyclic reduction's first level (4,096, 7 or 5; f32 for
+   ``tridiag_mp_solve``; 3 x 4,096 over lanes)): ``block_inv`` bitwise
+   equal to its plain version (f32 and f64, f=5, 7, 9, blocks that take
+   every branch, a NaN), the segment sum bitwise equal to the sequential
+   sum in sorted order and to a second launch and within the cumsum's
+   own rounding of it (2 M eps max|prefix|, the largest gap printed), its
+   lane axis bitwise per lane; and their times as above, with
+   ``torch.zeros(...).index_add_`` and ``torch.linalg.inv_ex`` as the
+   library yardsticks and a one-value launch as the floor;
+4. the paths, each with every launch count (all three kernels) set to 0
+   before it and read after it; per-step wall time, Newton and linear
+   iterations, host syncs and kernel launches; outputs present and finite;
+   every model path launched the segment-sum and ``block_inv`` kernels:
    - ``python -m gmpnp_tpu_torch.cli.pore_3d`` at L=50 nm, R=5 nm: 5 steps
      in carried mode (f32 chord GMRES over the f32 kernel) and 2 in exact
      mode (f64 GMRES over the f64 kernel);
@@ -69,8 +83,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      block-Jacobi f64, GMRES + block-Jacobi f32, GMRES + SSOR f64, GMRES +
      AMG f64 and f32): iterations, the true residual recomputed in f64
      (converged => at most 1.5 tol), ms, host syncs, launches by shape; the
-     same solves on the (2, 10) pore on the card and the CPU (same
-     converged flags, iterations within 10%);
+     same solves of one (2, 10) pore system, assembled on the CPU, on the
+     card and on the CPU (same converged flags, iterations within 10%);
    - one exact Newton step with BiCGStab (tol 1e-10, 20,000 iterations)
      against slab_direct: at L50R5 when a cold-start BiCGStab solve there
      converges (printed), and held at tests/test_slab.py's (L=100 nm,
@@ -109,18 +123,27 @@ script exits non-zero before printing any result.
     python3 chip_smoke.py --profile
 
 runs phases 1-2 and then, in place of 3-5, the profile of the L=50 nm,
-R=5 nm pore: the time of each layer's call at the cold start, and a
-``torch.profiler`` window over carried and exact steps with the device's
-busy share and its largest kernels.
+R=5 nm pore: the time of each layer's call at the cold start; the
+residual, the Jacobian and the 1D CR solve and factor through the kernels
+and through their plain versions (ms and device operations per call);
+and a ``torch.profiler`` window over carried and exact steps with the
+device's busy share and its largest kernels.
 
     python3 chip_smoke.py --kernel-times [--package-root DIR]
 
 runs phases 1-2 and the timings of phase 3 at the paths' shapes (every
-record of the kernels line: f=9, f=7 and the AMG coarse level), without
-the library call, with ``gmpnp_tpu_torch`` taken from DIR (default:
-beside this script).  To compare two commits on one card, unpack the
-other one with ``git archive`` into an ignored directory and run on the
-card, one after the other: other, this, this, other.
+record of the kernels line that DIR's package has), without the library
+calls, with ``gmpnp_tpu_torch`` taken from DIR (default: beside this
+script).  To compare two commits on one card, unpack the other one with
+``git archive`` into an ignored directory and run on the card, one after
+the other: other, this, this, other.
+
+    python3 chip_smoke.py --krylov-spread
+
+runs phases 1-2 and then phase 4d's (2, 10) f64 GMRES + AMG solve on the
+card and on the CPU, for the system assembled on each device and for eight
+copies of the CPU's with its Jacobian perturbed at 1e-15: the iteration
+counts that rounding alone gives.
 """
 
 import argparse
@@ -545,12 +568,392 @@ def kernel_times_only(dev):
         kernel_times(label, flat, adj, x, library=False)
 
 
+#: the sorted-segment sum at the paths' shapes: (record name, mesh, table,
+#: d, lanes, phase-4 path whose launches at the record's shape it counts);
+#: all f64 (the paths reduce in the state's dtype)
+SEGMENT_RECORDS = [
+    ("segment_sum_f64_pore_jacobian", "pore", "jac", 81, 1,
+     "pore_3d carried"),
+    ("segment_sum_f64_pore_residual", "pore", "res", 9, 1, "pore_3d carried"),
+    ("segment_sum_f64_rxn_diff_3d_jacobian", "pore", "jac", 49, 1,
+     "rxn_diff_3d carried"),
+    ("segment_sum_f64_rxn_diff_3d_residual", "pore", "res", 7, 1,
+     "rxn_diff_3d carried"),
+    ("segment_sum_f64_edl_jacobian", "edl", "jac", 49, 1, "edl_1d iter"),
+    ("segment_sum_f64_edl_residual", "edl", "res", 7, 1, "edl_1d iter"),
+    ("segment_sum_f64_pore_jacobian_lanes", "pore", "jac", 81, LANES,
+     "sweep pore_3d batched"),
+]
+#: the batched block inverse at the paths' shapes: (record name, batch
+#: rule, f, dtype, phase-4 path): the slab equilibration (one block per
+#: vertex of the pore), the first level of the 1D cyclic reduction (half
+#: the next power of two of the EDL mesh's vertices), over lanes the
+#: batched EDL sweep's first level
+BLOCK_INV_RECORDS = [
+    ("block_inv_f64_slab_gmpnp", "pore", 9, torch.float64, "pore_3d carried"),
+    ("block_inv_f64_slab_rxn_diff_3d", "pore", 7, torch.float64,
+     "rxn_diff_3d carried"),
+    ("block_inv_f64_cr_edl", "cr", 7, torch.float64, "edl_1d iter"),
+    ("block_inv_f32_cr_tridiag_mp", "cr", 7, torch.float32,
+     "tridiag_mp_solve"),
+    ("block_inv_f64_cr_rxn_diff_1d", "cr", 5, torch.float64, "rxn_diff_1d"),
+    ("block_inv_f64_cr_edl_lanes", "cr_lanes", 7, torch.float64,
+     "sweep edl_1d batched"),
+]
+HOT_SOURCES = {
+    "segment_sum": ("gmpnp_tpu_torch/csrc/segment_sum.cu",
+                    "gmpnp_tpu/fem/assembly.py:167"),
+    "block_inv": ("gmpnp_tpu_torch/csrc/block_inv.cu",
+                  "gmpnp_tpu/solve/smallblock.py:46"),
+}
+
+
+def path_spaces(dev):
+    """The FEM spaces (tables only) of the L=50 nm, R=5 nm pore and of the
+    1D models' mesh at L_n = 50 um."""
+    from gmpnp_tpu_torch.fem.assembly import FemSpace
+    from gmpnp_tpu_torch.mesh import cylinder_mesh, pore_boundary_markers
+    from gmpnp_tpu_torch.models import base
+
+    pore = pore_boundary_markers(cylinder_mesh(50e-9, 5e-9), 50e-9, 5e-9)
+    edl = base.interval_mesh_marked("variable", EDL_L_N)
+    return {"pore": FemSpace.build(pore, 9, quad_degree=2, device=dev),
+            "edl": FemSpace.build(edl, 7, quad_degree=3, device=dev)}
+
+
+def segment_bound(M, n_dest, d, dtype, lanes=1):
+    """Every value, table entry and output once over the memory rate, or
+    the M*d additions over the peak rate of their type."""
+    size = torch.empty((), dtype=dtype).element_size()
+    nbytes = lanes * (M + n_dest) * d * size + (M + 2 * n_dest) * 8
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = lanes * M * d / PEAK_FLOPS[dtype]
+    return {"bytes": nbytes, "bound_us": max(t_bytes, t_ops) * 1e6,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def block_inv_bound(batch, f, dtype):
+    """Every block read once and its inverse written once, or the
+    2 f^2 (2f - 1) multiplies, subtractions and divisions per block."""
+    size = torch.empty((), dtype=dtype).element_size()
+    nbytes = 2 * batch * f * f * size
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = batch * 2 * f * f * (2 * f - 1) / PEAK_FLOPS[dtype]
+    return {"bytes": nbytes, "bound_us": max(t_bytes, t_ops) * 1e6,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def hot_times(label, nbytes, bound, kernel, plain, library, copies):
+    """Times of a kernel and its plain version at one shape, in turns
+    (plain, kernel, kernel, plain), and of the library call once (None:
+    not timed): CUDA-event ms per call, device us per call from a replayed
+    CUDA graph, hot (operand copy 0 every call) and cold (the calls rotate
+    over ``copies`` copies, >= 256 MB).  ``kernel``, ``plain`` and
+    ``library`` take the copy's index.  A library call that fails (or that
+    a graph cannot capture) leaves its times None and says why in
+    ``library_note``."""
+    def turn(fn):
+        # a call over 1 ms (the plain versions at the Jacobian's shape)
+        # takes fewer calls and replays: the time is long enough to read
+        ms = time_ms(lambda: fn(0), reps=5, warmup=2)
+        slow = ms > 1.0
+        if not slow:
+            ms = time_ms(lambda: fn(0))
+        n = 2 if slow else (100 if nbytes < (16 << 20) else 20)
+        reps = 3 if slow else 10
+        return (ms, graph_us([lambda: fn(0)], n=n, reps=reps),
+                graph_us([(lambda i=i: fn(i)) for i in range(copies)], n=n,
+                         reps=reps))
+
+    turns = {"kernel": [], "plain": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        turns[name].append(turn(kernel if name == "kernel" else plain))
+    (ms, hot, cold), (plain_ms, plain_hot, plain_cold) = (
+        tuple(float(np.mean(v)) for v in zip(*turns[name]))
+        for name in ("kernel", "plain"))
+    rec = {"ms": ms, "plain_ms": plain_ms, "device_us": hot,
+           "device_us_cold": cold, "plain_device_us": plain_hot,
+           "plain_device_us_cold": plain_cold,
+           "bound_us": bound["bound_us"], "bound_ms": bound["bound_us"] / 1e3,
+           "bound_by": bound["bound_by"],
+           "share_of_bound_cold": bound["bound_us"] / cold,
+           "library_ms": None, "library_us": None, "library_us_cold": None}
+    try:
+        if library is None:
+            raise LookupError("not timed (--kernel-times)")
+        rec["library_ms"], rec["library_us"], rec["library_us_cold"] = (
+            turn(library))
+    except Exception as e:  # the yardstick may be refused; the run goes on
+        torch.cuda.synchronize()
+        rec["library_note"] = f"{type(e).__name__}: {e}"[:300]
+    print(f"kernel {label}: bytes={bound['bytes']} cold_copies={copies} "
+          f"turns={json.dumps(turns)} " + json.dumps(rec), flush=True)
+    if rec["share_of_bound_cold"] > 1.0:
+        raise AssertionError(
+            f"{label}: cold time {cold} us is under the bound "
+            f"{bound['bound_us']} us")
+    return rec
+
+
+def _copies(t):
+    return max(1, -(-COLD_ROTATION_BYTES // (t.numel() * t.element_size())))
+
+
+def check_segment_sum(dev, spaces, rng, library=True):
+    """Phase 3, the sorted-segment sum: at every path shape the kernel
+    bitwise equal to the sequential sum in sorted order and to a second
+    launch, within the cumsum twin's own rounding of it (2 M eps
+    max|prefix| per column), over lanes bitwise equal to one-lane launches
+    and to the custom op's vmap; then, at the paths' shapes, the times.
+    Returns the timed records keyed by name."""
+    from gmpnp_tpu_torch.ops import (
+        segment_sum, segment_sum_op, segment_sum_reference)
+    from gmpnp_tpu_torch.testing import sequential_segment_sum
+
+    records = {}
+    checks = SEGMENT_RECORDS + [
+        ("segment_sum_f32_pore_jacobian", "pore", "jac", 81, 1, None)]
+    for name, mesh, table, d, lanes, path in checks:
+        dtype = torch.float32 if "_f32_" in name else torch.float64
+        order, start, end = spaces[mesh].dev[f"{table}_tables"]
+        M, n_dest = order.shape[0], start.shape[0]
+        shape = (lanes, M, d) if lanes > 1 else (M, d)
+        values = torch.as_tensor(rng.normal(size=shape), dtype=dtype,
+                                 device=dev)
+        got = segment_sum(values, order, start, end)
+        again = segment_sum(values, order, start, end)
+        seq = sequential_segment_sum(values, order, start, end)
+        twin = segment_sum_reference(values, order, start, end)
+        prefix = torch.cumsum(values.index_select(-2, order), dim=-2)
+        bound = 2 * M * torch.finfo(dtype).eps * prefix.abs().amax(dim=-2)
+        gap = (got - twin).abs()
+        ratio = float(torch.where(gap > 0, gap / bound.unsqueeze(-2),
+                                  0.0).max())
+        torch.cuda.synchronize()
+        ok = {"bitwise_equal_sequential": torch.equal(got, seq),
+              "bitwise_repeatable": torch.equal(got, again),
+              "within_cumsum_rounding": ratio <= 1.0}
+        if lanes > 1:
+            one = torch.stack([segment_sum(values[v], order, start, end)
+                               for v in range(lanes)])
+            via_vmap = torch.func.vmap(
+                lambda v: segment_sum_op(v, order, start, end))(values)
+            ok["lanes_bitwise_one_lane"] = (torch.equal(got, one)
+                                            and torch.equal(via_vmap, one))
+        err = float(gap.max())
+        line = (f"kernel segment_sum {name} {'x'.join(map(str, shape))} -> "
+                f"{n_dest} {dtype}: {ok} max_abs_err_vs_cumsum={err!r} "
+                f"largest gap / (2 M eps max|prefix|) = {ratio!r}")
+        print(line, flush=True)
+        if not all(ok.values()):
+            raise AssertionError(line)
+        if path is None:
+            continue
+        copies = _copies(values)
+        vals = [values] + [values.clone() for _ in range(copies - 1)]
+        # the library yardstick: index_add_ of every value row onto its
+        # destination (atomics; called nowhere in the package)
+        dest = torch.empty(M, dtype=torch.int64, device=dev)
+        dest[order] = torch.repeat_interleave(
+            torch.arange(n_dest, device=dev), end - start)
+        if lanes > 1:
+            dest = (dest[None] + n_dest * torch.arange(
+                lanes, device=dev)[:, None]).reshape(-1)
+        lib = torch.zeros(lanes * n_dest, d, dtype=dtype, device=dev
+                          ).index_add_(0, dest, values.reshape(-1, d))
+        torch.cuda.synchronize()
+        lib_rel = float((lib.reshape(got.shape) - twin).norm()
+                        / twin.norm())
+        rec = hot_times(
+            f"segment_sum {name} {'x'.join(map(str, shape))}",
+            values.numel() * values.element_size(),
+            segment_bound(M, n_dest, d, dtype, lanes),
+            lambda i: segment_sum(vals[i], order, start, end),
+            lambda i: segment_sum_reference(vals[i], order, start, end),
+            (lambda i: torch.zeros(lanes * n_dest, d, dtype=dtype,
+                                   device=dev).index_add_(
+                0, dest, vals[i].reshape(-1, d))) if library else None,
+            copies)
+        records[name] = {"shape": list(shape), "n_dest": n_dest, "dtype":
+                         str(dtype).replace("torch.", ""), "path": path,
+                         "launch_key": _shape_key(
+                             ((lanes,) if lanes > 1 else ()) +
+                             (M, n_dest, d, str(dtype).replace("torch.", ""))),
+                         "max_abs_err": err, "gap_over_bound": ratio,
+                         "library": "torch.zeros(n_dest, d).index_add_(0, "
+                                    "dest, values)",
+                         "library_rel_l2": lib_rel, **ok, **rec}
+    return records
+
+
+def cr_level0(spaces):
+    """The first level's batch of the 1D cyclic reduction: half the next
+    power of two of the 1D mesh's vertices."""
+    from gmpnp_tpu_torch.solve.linear import _pow2
+
+    return _pow2(spaces["edl"].num_vertices) // 2
+
+
+def check_block_inv(dev, spaces, rng, library=True):
+    """Phase 3, the batched block inverse: at every path shape (and f=5,
+    7, 9 in both types) the kernel bitwise equal to its plain version and
+    to a second launch, on seeded blocks whose first ten take every branch
+    of the algorithm; a NaN lands where the plain version puts it; then,
+    at the paths' shapes, the times.  Returns the timed records keyed by
+    name."""
+    from gmpnp_tpu_torch.ops import block_inv, block_inv_reference
+    from gmpnp_tpu_torch.testing import guard_blocks
+
+    batches = {"pore": spaces["pore"].num_vertices, "cr": cr_level0(spaces),
+               "cr_lanes": LANES * cr_level0(spaces)}
+    checks = list(BLOCK_INV_RECORDS)
+    checks += [(f"block_inv_{tag}_f{f}", "pore", f, dt, None)
+               for f in (5, 7, 9)
+               for tag, dt in (("f32", torch.float32),
+                               ("f64", torch.float64))]
+    records = {}
+    for name, rule, f, dtype, path in checks:
+        batch = batches[rule]
+        A = torch.as_tensor(guard_blocks(rng, batch, f), dtype=dtype,
+                            device=dev)
+        got = block_inv(A)
+        again = block_inv(A)
+        ref = block_inv_reference(A)
+        nan = A[:16].clone()
+        nan[1, 0, 0] = float("nan")
+        same_nan = torch.equal(torch.isnan(block_inv(nan)),
+                               torch.isnan(block_inv_reference(nan)))
+        torch.cuda.synchronize()
+        finite = torch.isfinite(ref)
+        ok = {"bitwise_equal_plain": torch.equal(got, ref),
+              "bitwise_repeatable": torch.equal(got, again),
+              "nan_as_plain": same_nan}
+        err = float((got - ref)[finite].abs().max())
+        line = (f"kernel block_inv {name} ({batch}, {f}, {f}) {dtype}: {ok} "
+                f"max_abs_err={err!r}")
+        print(line, flush=True)
+        if not all(ok.values()):
+            raise AssertionError(line)
+        if path is None:
+            continue
+        copies = _copies(A)
+        mats = [A] + [A.clone() for _ in range(copies - 1)]
+        rec = hot_times(
+            f"block_inv {name} ({batch}, {f}, {f})",
+            A.numel() * A.element_size(), block_inv_bound(batch, f, dtype),
+            lambda i: block_inv(mats[i]),
+            lambda i: block_inv_reference(mats[i]),
+            # the library yardstick, called nowhere in the package: LU
+            # inverse without the error check's host sync
+            (lambda i: torch.linalg.inv_ex(mats[i])[0]) if library else None,
+            copies)
+        records[name] = {"shape": [batch, f, f], "dtype":
+                         str(dtype).replace("torch.", ""), "path": path,
+                         "launch_key": _shape_key(
+                             (batch, f, str(dtype).replace("torch.", ""))),
+                         "max_abs_err": err,
+                         "library": "torch.linalg.inv_ex(A)[0]", **ok, **rec}
+    return records
+
+
+def launch_floors(dev):
+    """The device time of a launch that does almost nothing, per kernel
+    and type: one row of one value, one 1 x 1 block."""
+    from gmpnp_tpu_torch.ops import block_inv, segment_sum
+
+    floors = {}
+    i64 = dict(dtype=torch.int64, device=dev)
+    for dtype in (torch.float32, torch.float64):
+        v = torch.ones((1, 1), dtype=dtype, device=dev)
+        z = torch.zeros(1, **i64)
+        o = torch.ones(1, **i64)
+        floors["segment_sum", dtype] = graph_us(
+            [lambda: segment_sum(v, z, z, o)])
+        A = torch.ones((1, 1, 1), dtype=dtype, device=dev)
+        floors["block_inv", dtype] = graph_us([lambda: block_inv(A)])
+    print(f"kernel launch floors (segment_sum one value, block_inv one 1x1 "
+          f"block): { {f'{k} {t}': v for (k, t), v in floors.items()} }",
+          flush=True)
+    return floors
+
+
+def check_hot_kernels(dev, library=True):
+    """Phase 3 for the segment-sum and block_inv kernels, with their times
+    (and the library calls' with ``library``); returns the records at the
+    paths' shapes keyed by name, each with its launch floor."""
+    rng = np.random.default_rng(909)
+    spaces = path_spaces(dev)
+    floors = launch_floors(dev)
+    records = check_segment_sum(dev, spaces, rng, library)
+    records.update(check_block_inv(dev, spaces, rng, library))
+    for name, rec in records.items():
+        dtype = (torch.float32 if rec["dtype"] == "float32"
+                 else torch.float64)
+        rec["floor_us"] = floors[_kernel_of(name), dtype]
+    return records
+
+
+def kernel_records(records, hot, launches):
+    """The kernels line: phase 3's records of every kernel at the paths'
+    shapes, each with the launches counted on its path at its shape (at
+    least one, or the run fails)."""
+    kernels = []
+    for name, label, dtype, path in KERNEL_RECORDS:
+        rec = records[label, dtype]
+        N, K, f = rec["shape"]
+        n = launches[path]["ell_spmv"]["shapes"].get(
+            f"{N}x{K}x{f} {str(dtype).replace('torch.', '')}", 0)
+        if n <= 0:
+            raise AssertionError(f"{name}: path {path} launched no kernel at "
+                                 f"{rec['shape']}")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "gmpnp_tpu_torch/csrc/ell_spmv.cu",
+                        "replaces": "gmpnp_tpu/ops/ell_spmv.py:70",
+                        "path": path, "launches": n, **rec})
+    for name, label, dtype, path in LANE_RECORDS:
+        rec = records[label, dtype]
+        n = launches[path]["ell_spmv"]["shapes"].get(
+            "x".join(map(str, rec["shape"]))
+            + f" {str(dtype).replace('torch.', '')}", 0)
+        if n <= 0:
+            raise AssertionError(f"{name}: path {path} launched no kernel at "
+                                 f"{rec['shape']}")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "gmpnp_tpu_torch/csrc/ell_spmv.cu",
+                        "replaces": "gmpnp_tpu/ops/ell_spmv.py:70",
+                        "path": path, "launches": n, **rec})
+    return kernels + hot_kernel_records(hot, launches)
+
+
+def hot_kernel_records(hot, launches):
+    """The kernels line's records of the segment-sum and block_inv kernels:
+    phase 3's records with the launches counted on each one's path at its
+    shape (at least one, or the run fails)."""
+    out = []
+    for name, rec in hot.items():
+        kernel = _kernel_of(name)
+        n = launches[rec["path"]][kernel]["shapes"].get(rec["launch_key"], 0)
+        if n <= 0:
+            raise AssertionError(f"{name}: path {rec['path']} launched no "
+                                 f"{kernel} kernel at {rec['launch_key']}")
+        source, replaces = HOT_SOURCES[kernel]
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": n,
+                    **{k: v for k, v in rec.items() if k != "launch_key"}})
+    return out
+
+
+def _kernel_of(record_name):
+    return ("segment_sum" if record_name.startswith("segment_sum")
+            else "block_inv")
+
+
 @contextlib.contextmanager
 def timed_steps(model, steps_log):
     """Wraps the model's run_transient so that each step ends in a
     synchronize and records wall ms, iterations, host syncs and kernel
     launches."""
-    from gmpnp_tpu_torch import ops, sync
+    from gmpnp_tpu_torch import sync
     from gmpnp_tpu_torch.io import checkpoint
 
     orig = model.run_transient
@@ -559,7 +962,7 @@ def timed_steps(model, steps_log):
     def timed_run_transient(step, *args, _orig=orig, **kw):
         def timed(*a):
             torch.cuda.synchronize()
-            l0 = dict(ops.LAUNCHES)
+            l0 = _launches()
             s0, t0 = sync.SYNCS, time.perf_counter()
             out = step(*a)
             torch.cuda.synchronize()
@@ -570,8 +973,7 @@ def timed_steps(model, steps_log):
                 "linear": int(st.linear_iters),
                 "converged": bool(st.converged),
                 "host_syncs": sync.SYNCS - s0,
-                "launches": {str(k).replace("torch.", ""): v - l0[k]
-                             for k, v in ops.LAUNCHES.items()}})
+                "launches": _step_launches(l0)})
             return out
         return _orig(timed, *args, **kw)
 
@@ -606,24 +1008,51 @@ def check_outputs(res, n_steps, n_vtk):
     return meta
 
 
+def _shape_key(key):
+    return "x".join(map(str, key[:-1])) + f" {key[-1]}"
+
+
 def _launches():
-    """Launches since the last _zero_launches: per dtype, and per shape
-    under "shapes" ("NxKxf dtype")."""
+    """Launches since the last _zero_launches, keyed by each kernel's name
+    in ``ops.COUNTERS``: per dtype, and per shape under "shapes"
+    ("ell_spmv": "NxKxf dtype", "segment_sum": "MxNdestxd dtype",
+    "block_inv": "batchxf dtype"; a lane count first over lanes)."""
     from gmpnp_tpu_torch import ops
 
-    out = {str(k).replace("torch.", ""): v for k, v in ops.LAUNCHES.items()}
-    out["shapes"] = {"x".join(map(str, key[:-1])) + f" {key[-1]}": n
-                     for key, n in sorted(ops.SHAPE_LAUNCHES.items(),
-                                          key=lambda kv: str(kv[0]))}
+    out = {}
+    for name, (per_dtype, per_shape) in ops.COUNTERS.items():
+        rec = {str(k).replace("torch.", ""): v for k, v in per_dtype.items()}
+        rec["shapes"] = {_shape_key(key): n for key, n in sorted(
+            per_shape.items(), key=lambda kv: str(kv[0]))}
+        out[name] = rec
+    return out
+
+
+def _step_launches(before, key="dtype"):
+    """What was launched since ``before`` (a _launches reading), for the
+    per-step lines: each kernel's launches per dtype, or with
+    ``key="shape"`` its nonzero launches per shape."""
+    out = {}
+    for name, rec in _launches().items():
+        if key == "shape":
+            was = before[name]["shapes"]
+            diff = {k: n - was.get(k, 0) for k, n in rec["shapes"].items()
+                    if n != was.get(k, 0)}
+            if diff:
+                out[name] = diff
+        else:
+            out[name] = {k: n - before[name][k] for k, n in rec.items()
+                         if k != "shapes"}
     return out
 
 
 def _zero_launches():
     from gmpnp_tpu_torch import ops
 
-    for k in ops.LAUNCHES:
-        ops.LAUNCHES[k] = 0
-    ops.SHAPE_LAUNCHES.clear()
+    for per_dtype, per_shape in ops.COUNTERS.values():
+        for k in per_dtype:
+            per_dtype[k] = 0
+        per_shape.clear()
 
 
 def run_path(label, model_name, fn, n_steps, n_vtk, full=False):
@@ -702,7 +1131,7 @@ def mp_solve_path(dev_name):
           f"host_syncs={syncs} launches={launches} "
           f"rel_l2_vs_f64_cr={rel!r} mp_ms={mp_ms!r} f64_cr_ms={cr_ms!r}",
           flush=True)
-    if not res.converged or launches["float64"] <= 0:
+    if not res.converged or launches["ell_spmv"]["float64"] <= 0:
         raise AssertionError("tridiag_mp_solve did not converge or "
                              "launched no f64 kernel")
     return launches
@@ -741,8 +1170,17 @@ def main_path(dev_name):
                          ("pore_3d iter", "float64"),
                          ("rxn_diff_3d carried", "float32"),
                          ("rxn_diff_3d iter", "float64")):
-        if launches[label][dtype] <= 0:
+        if launches[label]["ell_spmv"][dtype] <= 0:
             raise AssertionError(f"{label} launched no {dtype} kernel")
+    # every model path assembles through the segment-sum kernel and inverts
+    # blocks through the block_inv kernel (the slab equilibration, the 1D
+    # cyclic reduction); the 1D mixed-precision solve only inverts
+    for label, counts in launches.items():
+        for kernel in ("segment_sum", "block_inv"):
+            if kernel == "segment_sum" and label == "tridiag_mp_solve":
+                continue
+            if not counts[kernel]["shapes"]:
+                raise AssertionError(f"{label} launched no {kernel} kernel")
     return launches
 
 
@@ -940,9 +1378,10 @@ def sweep_paths(dev_name):
     launches["sweep edl_1d"], u, _ = _sweep(
         "sweep edl_1d", lambda: sweep.run_edl_voltage_sweep(
             ecfg, volts, n_steps=n, device=dev_name), n, len(volts))
-    if launches["sweep edl_1d"]["float32"] or launches["sweep edl_1d"][
-            "float64"]:
-        raise AssertionError("the EDL sweep (all-f64 CR) launched a kernel")
+    ell = launches["sweep edl_1d"]["ell_spmv"]
+    if ell["float32"] or ell["float64"]:
+        raise AssertionError("the EDL sweep (all-f64 CR) launched a "
+                             "block-ELL kernel")
     for i, v in enumerate(volts):
         u1, _ = sweep.run_edl_voltage_sweep(ecfg, [v], n_steps=n,
                                             device=dev_name)
@@ -982,8 +1421,8 @@ def sweep_paths(dev_name):
 def timed_lane_steps(steps_log):
     """Wraps the sweeps' run_transient_lanes so that each batched step ends
     in a synchronize and records wall ms, each lane's Newton and Krylov
-    iterations, host syncs and kernel launches (per dtype and shape)."""
-    from gmpnp_tpu_torch import ops, sync
+    iterations, host syncs and kernel launches (per kernel and shape)."""
+    from gmpnp_tpu_torch import sync
     from gmpnp_tpu_torch.parallel import sweep
 
     orig = sweep.run_transient_lanes
@@ -991,7 +1430,7 @@ def timed_lane_steps(steps_log):
     def timed_run(step, *args, **kw):
         def timed(*a):
             torch.cuda.synchronize()
-            l0, s0 = dict(ops.SHAPE_LAUNCHES), sync.SYNCS
+            l0, s0 = _launches(), sync.SYNCS
             t0 = time.perf_counter()
             out = step(*a)
             torch.cuda.synchronize()
@@ -1002,10 +1441,7 @@ def timed_lane_steps(steps_log):
                 "linear": st.linear_iters.tolist(),
                 "converged": st.converged.tolist(),
                 "host_syncs": sync.SYNCS - s0,
-                "launches": {"x".join(map(str, k[:-1])) + f" {k[-1]}":
-                             v - l0.get(k, 0)
-                             for k, v in ops.SHAPE_LAUNCHES.items()
-                             if v != l0.get(k, 0)}})
+                "launches": _step_launches(l0, key="shape")})
             return out
         return orig(timed, *args, **kw)
 
@@ -1142,7 +1578,7 @@ def batched_sweep_paths(dev_name):
     if info != {"chunk": LANES, "refresh": "step"}:
         raise AssertionError(f"batched pore sweep ran {info}")
     key = f"{LANES}x{u.shape[2]}x15x9 float64"
-    if not launches["sweep pore_3d batched"]["shapes"].get(key):
+    if not launches["sweep pore_3d batched"]["ell_spmv"]["shapes"].get(key):
         raise AssertionError(f"the batched pore sweep launched no {key}")
 
     ecfg = edl_1d.EDL1DConfig(L_n=EDL_L_N)
@@ -1233,10 +1669,54 @@ def krylov_solve(ell, r, space, amg_plan, kind, precond, dtype, tol,
     return res, true
 
 
+def _small_system(device="cpu"):
+    """The (2, 10) pore's cold-start system assembled on ``device``, its
+    space and its AMG plan."""
+    from gmpnp_tpu_torch.models import pore_3d
+    from gmpnp_tpu_torch.solve.amg import AMGPlan
+
+    p = pore_3d.build(_pore_cfg(mesh_resolution=(2, 10)), device=device)
+    e, b = _cold_start_system(p)
+    return e, b, p.space, AMGPlan.build(np.asarray(p.space.adj),
+                                        p.space.n_fields)
+
+
+def _solve_on(dev, e, b, space, plan, spec):
+    """One of KRYLOV_SOLVES on a copy of the system on ``dev``."""
+    from gmpnp_tpu_torch.fem.assembly import BlockELL
+
+    e = BlockELL(*(t.to(dev) for t in e))
+    return krylov_solve(e, b.to(dev), space, plan, *spec[1:])[0]
+
+
+def krylov_spread(dev_name, seeds=8):
+    """--krylov-spread: the (2, 10) f64 GMRES + AMG iteration count on the
+    card and on the CPU, for the system assembled on each device and for
+    copies of the CPU's whose Jacobian entries are scaled by
+    1 + 1e-15 N(0, 1) (one seed each): how far rounding alone moves the
+    count that phase 4d compares."""
+    spec = next(s for s in KRYLOV_SOLVES if s[0] == "gmres amg f64")
+    systems = [(f"assembled on {d}", *_small_system(d))
+               for d in ("cpu", dev_name)]
+    e, b, space, plan = systems[0][1:]
+    for seed in range(seeds):
+        g = torch.Generator().manual_seed(seed)
+        flat = e.flat * (1 + 1e-15 * torch.randn(
+            e.flat.shape, generator=g, dtype=e.flat.dtype))
+        systems.append((f"cpu system, perturbation seed {seed}",
+                        e._replace(flat=flat), b, space, plan))
+    for label, *system in systems:
+        iters = {d: _solve_on(d, *system, spec).iters
+                 for d in (dev_name, "cpu")}
+        print(f"krylov spread (2,10) {spec[0]} {label}: card "
+              f"{iters[dev_name]}, cpu {iters['cpu']}", flush=True)
+
+
 def krylov_paths(dev_name):
     """Phase 4d: the Krylov fallbacks on the L50R5 cold-start Jacobian, each
-    solve's contract checked on its true residual; the same solves on the
-    (2, 10) pore's Jacobian on the card and on the CPU."""
+    solve's contract checked on its true residual; the same solves of the
+    (2, 10) pore's system, assembled on the CPU, on the card and on the
+    CPU."""
     from gmpnp_tpu_torch import sync
     from gmpnp_tpu_torch.models import pore_3d
     from gmpnp_tpu_torch.solve.amg import AMGPlan
@@ -1271,17 +1751,16 @@ def krylov_paths(dev_name):
             raise AssertionError(f"converged above 1.5 x tol: {line}")
         if not res.converged and res.iters < maxiter and kind == "gmres":
             raise AssertionError(f"GMRES stopped early unconverged: {line}")
-        if launches[f"krylov {label}"][
+        if launches[f"krylov {label}"]["ell_spmv"][
                 "float32" if dtype == "f32" else "float64"] <= 0:
             raise AssertionError(f"no kernel launch: {line}")
 
-    small = {}
-    for dev in (dev_name, "cpu"):
-        p = pore_3d.build(_pore_cfg(mesh_resolution=(2, 10)), device=dev)
-        e, b = _cold_start_system(p)
-        pl = AMGPlan.build(np.asarray(p.space.adj), p.space.n_fields)
-        small[dev] = [krylov_solve(e, b, p.space, pl, *spec[1:])[0]
-                      for spec in KRYLOV_SOLVES]
+    # the (2, 10) system is assembled once, on the CPU, and both devices
+    # solve the same bits: assembly rounding of order 1e-15 alone moves the
+    # f64 AMG count by more than this check's bar (--krylov-spread)
+    e, b, space, pl = _small_system()
+    small = {dev: [_solve_on(dev, e, b, space, pl, spec)
+                   for spec in KRYLOV_SOLVES] for dev in (dev_name, "cpu")}
     for spec, rd, rc in zip(KRYLOV_SOLVES, small[dev_name], small["cpu"]):
         line = (f"krylov (2,10) {spec[0]}: card {rd.iters} "
                 f"{rd.converged}, cpu {rc.iters} {rc.converged}")
@@ -1446,7 +1925,7 @@ def timed_shard_steps(steps_log):
     ms, Newton and Krylov iterations, host syncs, ranks and devices, peak
     device memory, the carried state's bytes per rank and kernel
     launches."""
-    from gmpnp_tpu_torch import ops, sync
+    from gmpnp_tpu_torch import sync
     from gmpnp_tpu_torch.parallel import shard
 
     orig = shard.make_sharded_step
@@ -1458,7 +1937,7 @@ def timed_shard_steps(steps_log):
         def timed(*a):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            l0 = dict(ops.LAUNCHES)
+            l0 = _launches()
             s0, t0 = sync.SYNCS, time.perf_counter()
             res = step(*a)
             torch.cuda.synchronize()
@@ -1469,8 +1948,7 @@ def timed_shard_steps(steps_log):
                    "host_syncs": sync.SYNCS - s0, "ranks": group.n,
                    "devices": sorted({str(d) for d in group.devices}),
                    "peak_bytes": torch.cuda.max_memory_allocated(),
-                   "launches": {str(k).replace("torch.", ""): v - l0[k]
-                                for k, v in ops.LAUNCHES.items()}}
+                   "launches": _step_launches(l0)}
             if len(res) == 3:
                 dev, rep = res[2]
                 rec["carry_bytes_per_rank"] = [
@@ -1875,6 +2353,94 @@ def profile_calls(dev, mesh_resolution=None, reps=5):
               f"{(sync.SYNCS - s0) // reps}{extra}", flush=True)
 
 
+@contextlib.contextmanager
+def plain_route():
+    """FemSpace's segment sums and the solvers' block inverses through
+    their plain versions (the torch ops the kernels replaced), for
+    comparing the two routes inside one run."""
+    from gmpnp_tpu_torch.fem import assembly
+    from gmpnp_tpu_torch.ops import block_inv_reference, segment_sum_reference
+    from gmpnp_tpu_torch.solve import smallblock
+
+    saved = assembly.segment_sum_op, smallblock._block_inv
+    assembly.segment_sum_op = segment_sum_reference
+    smallblock._block_inv = block_inv_reference
+    try:
+        yield
+    finally:
+        assembly.segment_sum_op, smallblock._block_inv = saved
+
+
+def profile_hot_paths(dev, reps=5):
+    """The calls the segment-sum and block_inv kernels serve, through the
+    kernels and through their plain versions, in turns (plain, kernel,
+    kernel, plain): FemSpace.residual and .jacobian at the L=50 nm, R=5 nm
+    pore's cold start (GMPNP), and the fused f64 1D CR solve and the f32
+    CR factorization on the EDL cold-start Jacobian at L_n = 50 um.  Per
+    call: host-clock ms (median of ``reps``, synchronized) and the device
+    operations one call issues (torch.profiler: kernels, copies and
+    fills)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gmpnp_tpu_torch.models import edl_1d, pore_3d
+    from gmpnp_tpu_torch.solve.linear import (
+        block_tridiag_factor_cr, block_tridiag_from_ell,
+        block_tridiag_solve_cr)
+
+    prog = pore_3d.build(pore_3d.Pore3DConfig(**PORE_KW), device=dev)
+    space, form = prog.space, prog.form
+    u0 = prog.initial_state()
+    theta = prog._theta_of_carry((u0, 0.0), 0)
+    u = prog._bc_of_theta(theta).project(u0)
+    eprog = edl_1d.build(edl_1d.EDL1DConfig(L_n=EDL_L_N), device=dev)
+    e0 = eprog.initial_state()
+    eth = eprog._theta_of_carry((e0, 0.0), 0)
+    eu = eprog.bc.project(e0)
+    ell = eprog.bc.apply_to_jacobian(eprog.space.jacobian(eprog.form, eu, e0,
+                                                          eth))
+    rhs = eprog.bc.apply_to_residual(
+        eprog.space.residual(eprog.form, eu, e0, eth), eu)
+    tri = block_tridiag_from_ell(ell)
+    tri32 = [t.to(torch.float32) for t in tri]
+    calls = [
+        ("FemSpace.residual (GMPNP L50R5)",
+         lambda: space.residual(form, u, u0, theta)),
+        ("FemSpace.jacobian (GMPNP L50R5)",
+         lambda: space.jacobian(form, u, u0, theta)),
+        (f"block_tridiag_solve_cr f64 (EDL N={ell.flat.shape[0]})",
+         lambda: block_tridiag_solve_cr(*tri, rhs)),
+        ("block_tridiag_factor_cr f32 (EDL)",
+         lambda: block_tridiag_factor_cr(*tri32)),
+    ]
+    for name, fn in calls:
+        out = {}
+        for route in ("plain", "kernel", "kernel", "plain"):
+            ctx = plain_route() if route == "plain" else (
+                contextlib.nullcontext())
+            with ctx:
+                fn()
+                _sync(dev)
+                times = []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    fn()
+                    _sync(dev)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    fn()
+                    _sync(dev)
+            ops_n = sum(1 for e in prof.events()
+                        if e.device_type == DeviceType.CUDA)
+            out.setdefault(route, []).append((float(np.median(times)),
+                                              ops_n))
+        print(f"  hot call {name}: " + json.dumps(
+            {route: {"ms": [t for t, _ in v],
+                     "device_ops_per_call": [n for _, n in v]}
+             for route, v in out.items()}), flush=True)
+
+
 def profile_steps(dev, mesh_resolution=None, top=12):
     """Device time over wall for 5 carried steps (after one warm run), 2
     exact steps and 2 steps of the batched pore sweep (3 lanes, chunk=3,
@@ -1938,6 +2504,9 @@ def main(argv=None) -> int:
     p.add_argument("--kernel-times", action="store_true",
                    help="time the kernel at the main path's shape in place "
                         "of phases 3-5")
+    p.add_argument("--krylov-spread", action="store_true",
+                   help="phase 4d's (2, 10) f64 AMG iteration counts under "
+                        "rounding perturbations, in place of phases 3-5")
     p.add_argument("--package-root", default=None,
                    help="directory that holds the gmpnp_tpu_torch to load "
                         "(default: beside this script)")
@@ -1960,49 +2529,36 @@ def main(argv=None) -> int:
     print(_build.BUILD_LOG.strip(), flush=True)
 
     if args.kernel_times:
+        from gmpnp_tpu_torch import ops
+
         kernel_times_only(dev)
+        if hasattr(ops, "segment_sum"):   # not in checkouts before them
+            check_hot_kernels(dev, library=False)
+        print(card_line(), flush=True)
+        return 0
+
+    if args.krylov_spread:
+        krylov_spread("cuda")
         print(card_line(), flush=True)
         return 0
 
     if args.profile:
         profile_calls(dev)
+        profile_hot_paths(dev)
         profile_steps(dev)
         print(card_line(), flush=True)
         return 0
 
     shutil.rmtree(OUT, ignore_errors=True)
     records = check_kernels(dev)
+    hot = check_hot_kernels(dev)
     launches = main_path("cuda")
     for phase in (checkpoint_paths, sweep_paths, batched_sweep_paths,
                   krylov_paths, newton_mode_paths, shard_paths):
         launches.update(phase("cuda"))
     checks("cuda")
 
-    kernels = []
-    for name, label, dtype, path in KERNEL_RECORDS:
-        rec = records[label, dtype]
-        N, K, f = rec["shape"]
-        n = launches[path]["shapes"].get(
-            f"{N}x{K}x{f} {str(dtype).replace('torch.', '')}", 0)
-        if n <= 0:
-            raise AssertionError(f"{name}: path {path} launched no kernel at "
-                                 f"{rec['shape']}")
-        kernels.append({"name": name, "route": "cuda",
-                        "source": "gmpnp_tpu_torch/csrc/ell_spmv.cu",
-                        "replaces": "gmpnp_tpu/ops/ell_spmv.py:70",
-                        "path": path, "launches": n, **rec})
-    for name, label, dtype, path in LANE_RECORDS:
-        rec = records[label, dtype]
-        n = launches[path]["shapes"].get(
-            "x".join(map(str, rec["shape"]))
-            + f" {str(dtype).replace('torch.', '')}", 0)
-        if n <= 0:
-            raise AssertionError(f"{name}: path {path} launched no kernel at "
-                                 f"{rec['shape']}")
-        kernels.append({"name": name, "route": "cuda",
-                        "source": "gmpnp_tpu_torch/csrc/ell_spmv.cu",
-                        "replaces": "gmpnp_tpu/ops/ell_spmv.py:70",
-                        "path": path, "launches": n, **rec})
+    kernels = kernel_records(records, hot, launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

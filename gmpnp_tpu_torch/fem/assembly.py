@@ -36,6 +36,7 @@ from gmpnp_tpu_torch.mesh.core import (
     facet_measures,
     vertex_adjacency,
 )
+from gmpnp_tpu_torch.ops.segment_sum import segment_sum_op
 
 
 class BlockELL(NamedTuple):
@@ -189,15 +190,12 @@ def _sorted_segment_tables(dest: np.ndarray, n_dest: int):
 
 
 def _segment_reduce(values: torch.Tensor, order, start, end) -> torch.Tensor:
-    """values (M, d) -> (n_dest, d): per-segment sums via sorted gather +
-    cumulative sum + prefix difference (deterministic order, the
-    reference's formulation).  Segments with start == end yield exact
-    zeros."""
-    v = values[order]
-    cum = torch.cumsum(v, dim=0)
-    cum = torch.cat([torch.zeros((1,) + tuple(v.shape[1:]), dtype=v.dtype,
-                                 device=v.device), cum], dim=0)
-    return cum[end] - cum[start]
+    """values (M, d) -> (n_dest, d): per-segment sums in sorted order
+    (``ops.segment_sum``: the hand-written kernel on CUDA tensors, the
+    reference's sorted gather + cumulative sum + prefix difference on CPU
+    tensors; under ``vmap`` one call over the lanes).  Segments with
+    start == end yield exact zeros."""
+    return segment_sum_op(values.contiguous(), order, start, end)
 
 
 def _slot_table(cells: np.ndarray, adj: np.ndarray) -> np.ndarray:
@@ -430,7 +428,7 @@ class FemSpace:
                 lambda ue, upe, g, v, x: self._local_volume_residual(
                     form, ue, upe, g, v, x, theta)
             )(u_e, up_e, d["gradN"], d["vols"], d["xq"])
-        # scatter-free reduction onto vertices (sorted gather + cumsum)
+        # scatter-free reduction onto vertices (sorted-segment sum)
         C, nv = self.cells.shape
         r = _segment_reduce(
             r_e.reshape(C * nv, self.n_fields), *d["res_tables"])

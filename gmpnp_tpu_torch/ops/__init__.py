@@ -11,9 +11,37 @@ Kernels:
   of the Krylov fallbacks (every AMG level included); over a lane axis
   (one launch for the V lanes of a batched sweep) it is the matvec of
   ``solve.slab.slab_apply_lanes``.
+- segment_sum: the sorted-segment sum of FEM assembly
+  (``csrc/segment_sum.cu``) — the counterpart of
+  ``gmpnp_tpu/fem/assembly.py::_segment_reduce``: every residual and
+  Jacobian of ``fem.assembly.FemSpace`` (over lanes through the custom
+  op's vmap rule) and the sharded band assembly.
+- block_inv: the batched Gauss-Jordan inverse of small blocks with the
+  reference's guards (``csrc/block_inv.cu``) — the counterpart of
+  ``gmpnp_tpu/solve/smallblock.py::block_inv``: the 1D cyclic reduction,
+  the slab and block-Jacobi equilibrations, AMG and the sharded diagonal.
+
+``COUNTERS`` maps each kernel's name to its (``LAUNCHES``,
+``SHAPE_LAUNCHES``): launches per dtype and per shape, counted where the
+kernel is launched.
 """
 
+from gmpnp_tpu_torch.ops.block_inv import LAUNCHES as _BLOCK_INV_LAUNCHES
+from gmpnp_tpu_torch.ops.block_inv import SHAPE_LAUNCHES as _BLOCK_INV_SHAPES
+from gmpnp_tpu_torch.ops.block_inv import block_inv, block_inv_reference
 from gmpnp_tpu_torch.ops.ell_spmv import (
     LAUNCHES, SHAPE_LAUNCHES, ell_spmv, ell_spmv_reference)
+from gmpnp_tpu_torch.ops.segment_sum import LAUNCHES as _SEGMENT_LAUNCHES
+from gmpnp_tpu_torch.ops.segment_sum import SHAPE_LAUNCHES as _SEGMENT_SHAPES
+from gmpnp_tpu_torch.ops.segment_sum import (
+    segment_sum, segment_sum_op, segment_sum_reference)
 
-__all__ = ["LAUNCHES", "SHAPE_LAUNCHES", "ell_spmv", "ell_spmv_reference"]
+COUNTERS = {
+    "ell_spmv": (LAUNCHES, SHAPE_LAUNCHES),
+    "segment_sum": (_SEGMENT_LAUNCHES, _SEGMENT_SHAPES),
+    "block_inv": (_BLOCK_INV_LAUNCHES, _BLOCK_INV_SHAPES),
+}
+
+__all__ = ["COUNTERS", "LAUNCHES", "SHAPE_LAUNCHES", "block_inv",
+           "block_inv_reference", "ell_spmv", "ell_spmv_reference",
+           "segment_sum", "segment_sum_op", "segment_sum_reference"]

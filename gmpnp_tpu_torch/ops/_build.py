@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``gmpnp_tpu_torch/csrc/`` are compiled with ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface, loaded
-with ``ctypes``.  The build runs at first use, into ``build/torch_kernels/``
+Hopper (``sm_90a``), one ``nvcc`` per source, all started together, and
+linked into one shared library with a plain C interface, loaded with
+``ctypes``.  The build runs at first use, into ``build/torch_kernels/``
 at the root of the checkout; the library's name carries a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one is
 reused.  Nothing is fetched: ``nvcc`` comes from ``PATH`` or the CUDA
@@ -19,17 +20,29 @@ import subprocess
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(_PKG)
-SOURCES = (os.path.join(_PKG, "csrc", "ell_spmv.cu"),)
+SOURCES = tuple(os.path.join(_PKG, "csrc", name) for name in (
+    "ell_spmv.cu", "segment_sum.cu", "block_inv.cu"))
 BUILD_DIR = os.path.join(_REPO, "build", "torch_kernels")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+#: flags of each source's compile (-Xptxas -v: registers, shared memory and
+#: spills of every kernel in BUILD_LOG) and of the link
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+LINK_FLAGS = (*_ARCH, "-shared")
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # (name, restype, argtypes) of every C entry point
 _SIGNATURES = tuple(
-    (name, ctypes.c_int,
-     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-     + [ctypes.c_longlong, ctypes.c_void_p])
-    for name in ("ell_spmv_f32", "ell_spmv_f64"))
+    (f"{kernel}_{t}", ctypes.c_int, argtypes)
+    for kernel, argtypes in (
+        # flat, adj, x, y, N, K, f, tile, mode, lanes, lane_stride, stream
+        ("ell_spmv", [_P] * 4 + [_I] * 6 + [_LL, _P]),
+        # values, order, start, end, out, n_dest, d, lanes, lane_values,
+        # lane_out, stream
+        ("segment_sum", [_P] * 5 + [_LL, _I, _I, _LL, _LL, _P]),
+        # A, out, batch, f, stream
+        ("block_inv", [_P, _P, _LL, _I, _P]))
+    for t in ("f32", "f64"))
 
 _lib = None
 #: what the last build in this process printed (empty when the library
@@ -50,7 +63,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in SOURCES:
         with open(src, "rb") as fh:
             h.update(fh.read())
@@ -59,20 +72,43 @@ def library_path() -> str:
 
 def build() -> str:
     """Compile the sources unless an up-to-date library exists; returns its
-    path.  Raises with nvcc's output when the compile fails."""
+    path.  Raises with nvcc's output when a compile or the link fails."""
     global BUILD_LOG
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{BUILD_LOG}")
-    os.replace(tmp, out)
+    tmp = f"{out}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in SOURCES:
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], None
+    for cmd, _, proc in jobs:
+        logs.append(proc.communicate()[0])
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode)
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed is None:
+            cmd = [nvcc, *LINK_FLAGS, "-o", f"{tmp}.so", *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed = (cmd, proc.returncode)
+        BUILD_LOG = "".join(logs)
+        if failed is not None:
+            raise RuntimeError(f"nvcc failed ({failed[1]}):\n"
+                               f"{' '.join(failed[0])}\n{BUILD_LOG}")
+        os.replace(f"{tmp}.so", out)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     return out
 
 

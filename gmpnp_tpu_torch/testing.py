@@ -1,4 +1,5 @@
-"""Parity harness: relative-L2 comparators and read-only golden files.
+"""Parity harness: relative-L2 comparators, read-only golden files, and the
+inputs and sequential reference the kernel checks share.
 
 The goldens under ``tests/goldens/`` were written by the reference package.
 The port only reads them: :class:`GoldenFile` here never writes, and a
@@ -12,6 +13,7 @@ import os
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 
 def rel_l2(a: np.ndarray, b: np.ndarray) -> float:
@@ -84,3 +86,47 @@ class GoldenFile:
         if got != ref:
             return f"{prefix}: {got!r} != golden {ref!r}"
         return None
+
+
+def guard_blocks(rng: np.random.Generator, n: int, f: int) -> np.ndarray:
+    """n seeded (f, f) f64 blocks whose first ten take every branch of
+    ``block_inv``: a zero leading pivot (a row swap), tied and all-equal
+    column maxima (the first wins), zero and tiny columns (the pivot
+    floor), a row beyond RANGE_LIM (the input clamp), an inverse beyond
+    it, a repeated row, an all-zero block and a tied negative column."""
+    A = rng.normal(size=(max(n, 10), f, f))
+    A[0, 0, 0] = 0.0
+    A[1, min(1, f - 1), 0] = -A[1, 0, 0]
+    A[2, :, 0] = A[2, 0, 0]
+    A[3, :, min(2, f - 1)] = 0.0
+    A[4, :, min(1, f - 1)] *= 1e-18
+    A[5, 0, :] *= 1e20
+    A[6] *= 1e-12
+    A[7, -1, :] = A[7, 0, :]
+    A[8] = 0.0
+    A[9, :, f - 1] = -2.0
+    return A[:n]
+
+
+def sequential_segment_sum(values: torch.Tensor, order: torch.Tensor,
+                           start: torch.Tensor,
+                           end: torch.Tensor) -> torch.Tensor:
+    """The sum of each segment in sorted order, left to right from 0.0, as
+    the torch loop ``acc = acc + z[table[:, j]]`` over the columns of a
+    padded gather table (``parallel/shard.py::_gather_table``'s layout:
+    each row's positions in sorted order, padded with the zero row ``z``
+    appends).  values (..., M, d) -> (..., n_dest, d)."""
+    counts = (end - start).cpu().numpy()
+    width = max(1, int(counts.max(initial=0)))
+    j = np.arange(width)[None, :]
+    pos = np.minimum(start.cpu().numpy()[:, None] + j, len(order) - 1)
+    table = torch.as_tensor(
+        np.where(j < counts[:, None], order.cpu().numpy()[pos],
+                 values.shape[-2]), device=values.device)
+    z = torch.cat([values, values.new_zeros(
+        values.shape[:-2] + (1,) + values.shape[-1:])], dim=-2)
+    acc = values.new_zeros(values.shape[:-2] + (len(start),)
+                           + values.shape[-1:])
+    for c in range(width):
+        acc = acc + z.index_select(-2, table[:, c])
+    return acc

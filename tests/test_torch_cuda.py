@@ -1,4 +1,6 @@
-"""The port on a CUDA card: each kernel against its plain version, the 1D
+"""The port on a CUDA card: each kernel against its plain version (the
+block-ELL matvec, the sorted-segment sum and the batched block inverse,
+bitwise where the kernel's rounding is the plain version's), the 1D
 cyclic reduction on the card against the CPU, a short transient on the
 card against the same transient on the CPU, and the Krylov fallbacks: the
 AMG Galerkin product and the SSOR preconditioner bitwise repeatable on the
@@ -297,3 +299,106 @@ def test_krylov_card_matches_cpu(cuda_device, kind, precond, solve_dtype):
     assert abs(rd.iters - rc.iters) <= max(1, rc.iters // 10)
     err = rel_l2(rd.x.cpu().double().numpy(), rc.x.double().numpy())
     assert err <= (1e-6 if solve_dtype == "f64" else 1e-3), err
+
+
+# --- the sorted-segment sum and the batched block inverse ------------------
+#
+# block_inv: the kernel is bitwise equal to its plain version (every
+# product, difference and quotient rounded as torch's kernels round them);
+# the segment sum: bitwise equal to the sequential sum in sorted order,
+# bitwise repeatable, and within the cumsum twin's own rounding of it
+# (2 M eps max|prefix| per column, M the rows summed).
+
+# the paths' widths and batches (the slab equilibration's (2,501, 9, 9),
+# the 1D CR's first level (4,096, 7, 7), the 1D rxn-diff f=5) and every
+# other width the kernel takes
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n,f", [(2501, 9), (4096, 7), (4096, 5), (37, 1),
+                                 (37, 2), (37, 3), (37, 4), (37, 6),
+                                 (37, 8), (37, 10), (37, 11), (37, 12),
+                                 (37, 13), (37, 14), (37, 15), (37, 16)])
+def test_block_inv_kernel_bitwise_equal_to_plain(cuda_device, n, f, dtype):
+    from gmpnp_tpu_torch.ops import COUNTERS, block_inv, block_inv_reference
+    from gmpnp_tpu_torch.testing import guard_blocks
+
+    A = torch.as_tensor(guard_blocks(np.random.default_rng(13), n, f)
+                        .astype(dtype), device=cuda_device)
+    launches = COUNTERS["block_inv"][0]
+    n0 = launches[A.dtype]
+    got = block_inv(A)
+    again = block_inv(A)
+    torch.cuda.synchronize()
+    assert launches[A.dtype] == n0 + 2
+    ref = block_inv_reference(A)
+    assert torch.equal(got, ref)
+    assert torch.equal(got, again)
+    nan = A.clone()
+    nan[1, 0, 0] = float("nan")        # NaN ranks highest, as in argmax
+    assert torch.equal(torch.isnan(block_inv(nan)),
+                       torch.isnan(block_inv_reference(nan)))
+
+
+def _pore_tables(device):
+    from gmpnp_tpu_torch.fem.assembly import FemSpace
+    from gmpnp_tpu_torch.mesh import cylinder_mesh, pore_boundary_markers
+
+    mesh = pore_boundary_markers(cylinder_mesh(50e-9, 5e-9), 50e-9, 5e-9)
+    sp = FemSpace.build(mesh, 9, quad_degree=2, device=device)
+    return sp.dev["res_tables"], sp.dev["jac_tables"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("which,d", [("res", 9), ("jac", 81), ("jac", 49),
+                                     ("jac", 200)])
+def test_segment_sum_kernel_sequential_and_repeatable(cuda_device, which, d,
+                                                      dtype):
+    from gmpnp_tpu_torch.ops import (COUNTERS, segment_sum, segment_sum_op,
+                                     segment_sum_reference)
+    from gmpnp_tpu_torch.testing import sequential_segment_sum
+
+    res, jac = _pore_tables(cuda_device)
+    order, start, end = res if which == "res" else jac
+    M = order.shape[0]
+    values = torch.as_tensor(np.random.default_rng(3).normal(size=(M, d)),
+                             dtype=dtype, device=cuda_device)
+    launches = COUNTERS["segment_sum"][0]
+    n0 = launches[dtype]
+    got = segment_sum(values, order, start, end)
+    again = segment_sum(values, order, start, end)
+    torch.cuda.synchronize()
+    assert launches[dtype] == n0 + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, sequential_segment_sum(values, order, start,
+                                                   end))
+    twin = segment_sum_reference(values, order, start, end)
+    prefix = torch.cumsum(values[order], dim=0).abs().amax(dim=0)
+    bound = 2 * M * torch.finfo(dtype).eps * prefix
+    assert bool(((got - twin).abs() <= bound).all())
+    # lanes: one launch, each lane its one-lane launch
+    lanes = torch.stack([values, 2.0 * values, values.flip(0)])
+    one = torch.stack([segment_sum(v.contiguous(), order, start, end)
+                       for v in lanes])
+    assert torch.equal(segment_sum(lanes, order, start, end), one)
+    assert torch.equal(torch.func.vmap(
+        lambda v: segment_sum_op(v, order, start, end))(lanes), one)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_hot_kernels_on_a_side_stream(cuda_device, dtype):
+    from gmpnp_tpu_torch.ops import block_inv, segment_sum
+    from gmpnp_tpu_torch.testing import guard_blocks
+
+    _, (order, start, end) = _pore_tables(cuda_device)
+    rng = np.random.default_rng(6)
+    values = torch.as_tensor(rng.normal(size=(order.shape[0], 81)),
+                             dtype=dtype, device=cuda_device)
+    A = torch.as_tensor(guard_blocks(rng, 2501, 9), dtype=dtype,
+                        device=cuda_device)
+    s, inv = segment_sum(values, order, start, end), block_inv(A)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(device=cuda_device)
+    with torch.cuda.stream(side):
+        s_side = segment_sum(values, order, start, end)
+        inv_side = block_inv(A)
+    side.synchronize()
+    assert torch.equal(s, s_side) and torch.equal(inv, inv_side)
