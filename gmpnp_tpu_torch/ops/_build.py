@@ -38,10 +38,10 @@ _SIGNATURES = tuple(
         # flat, adj, x, y, N, K, f, tile, mode, lanes, lane_stride, stream
         ("ell_spmv", [_P] * 4 + [_I] * 6 + [_LL, _P]),
         # values, order, start, end, out, n_dest, d, lanes, lane_values,
-        # lane_out, stream
-        ("segment_sum", [_P] * 5 + [_LL, _I, _I, _LL, _LL, _P]),
-        # A, out, batch, f, stream
-        ("block_inv", [_P, _P, _LL, _I, _P]))
+        # lane_out, rows_per_warp, depth, stream
+        ("segment_sum", [_P] * 5 + [_LL, _I, _I, _LL, _LL, _I, _I, _P]),
+        # A, out, batch, f, blocks_per_warp, stream
+        ("block_inv", [_P, _P, _LL, _I, _I, _P]))
     for t in ("f32", "f64"))
 
 _lib = None

@@ -12,11 +12,11 @@ values.
 
 The plain version ``block_inv_reference`` runs the loop over f as torch
 ops, about 18 launches per column; the kernel (``csrc/block_inv.cu``)
-inverts the whole batch in one launch, one thread per column of the
-augmented matrix, and rounds every product, difference and quotient as the
-plain version's torch kernels do, so on the card the two are bitwise equal.
-Bound: bytes, under the launch floor at the paths' shapes (``PERF.md``
-section 6).
+inverts the whole batch in one launch, one thread per pair of columns of
+the augmented matrix and ``blocks_per_warp(f)`` blocks per warp, and
+rounds every product, difference and quotient as the plain version's torch
+kernels do, so on the card the two are bitwise equal.  Bound: bytes, under
+the launch floor at the paths' shapes (``PERF.md`` section 6).
 
 ``block_inv`` launches the kernel for CUDA tensors (or raises) and runs the
 plain version for CPU tensors only.  ``LAUNCHES`` counts kernel launches
@@ -33,13 +33,23 @@ import torch
 # engage, Newton certifies the direction on the true f64 residual.
 RANGE_LIM = 1.0e16
 RANGE_FLOOR = 1.0e-16
-#: the widest block the kernel takes (2f threads of one warp)
+#: the widest block the kernel takes (f threads of one warp, each holding
+#: two columns of [A | I])
 MAX_F = 16
 
 #: kernel launches per dtype, counted where the kernel is launched
 LAUNCHES = {torch.float32: 0, torch.float64: 0}
 #: kernel launches per (batch, f, dtype name), counted at the same place
 SHAPE_LAUNCHES = {}
+
+
+def blocks_per_warp(f: int) -> int:
+    """The blocks one warp of the kernel inverts together: f threads each,
+    as many as fit in 32 lanes (fewer blocks per warp ran slower on the
+    card at every path shape: ``probes/torch_block_inv_anatomy.py``)."""
+    if not 1 <= f <= MAX_F:
+        raise ValueError(f"block_inv takes 1 <= f <= {MAX_F}, got f={f}")
+    return 32 // f
 
 
 def range_clamp(x: torch.Tensor, lim: float = RANGE_LIM) -> torch.Tensor:
@@ -119,7 +129,8 @@ def block_inv(A: torch.Tensor) -> torch.Tensor:
     fn = lib.block_inv_f32 if A.dtype == torch.float32 else lib.block_inv_f64
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = fn(A.data_ptr(), out.data_ptr(), batch, f, stream)
+        err = fn(A.data_ptr(), out.data_ptr(), batch, f, blocks_per_warp(f),
+                 stream)
     if err != 0:
         raise RuntimeError(f"block_inv kernel launch failed: CUDA error "
                            f"{err}")

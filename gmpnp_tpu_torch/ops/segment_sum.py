@@ -10,11 +10,15 @@ The plain version ``segment_sum_reference`` is the reference's sorted
 gather, cumulative sum and prefix difference.  On the card its dim-0 cumsum
 of an (M, d) tensor with small d ran one thread per column over all M rows
 and took about half the pore's device time; the kernel
-(``csrc/segment_sum.cu``) sums each destination row with one warp, left to
-right from 0.0, so it is bitwise the sequential sum in sorted order and
-bitwise repeatable.  The two round differently: the cumsum's error is about
-eps * |prefix| per column (``chip_smoke.py`` phase 3 holds the kernel to
-2 * M * eps * max|prefix|).  Bound: bytes (``PERF.md`` section 6).
+(``csrc/segment_sum.cu``) sums each destination row left to right from
+0.0, so it is bitwise the sequential sum in sorted order and bitwise
+repeatable.  ``segment_plan`` picks its path from the row width: a warp
+per row at d > 16 (the Jacobians), ``32 // d`` rows packed into a warp
+with a row's values loaded ``depth`` at a time before they are added at d
+<= 16 (the residuals).  The two versions round differently: the cumsum's
+error is about eps * |prefix| per column (``chip_smoke.py`` phase 3 holds
+the kernel to 2 * M * eps * max|prefix|).  Bound: bytes (``PERF.md``
+section 6).
 
 ``segment_sum`` launches the kernel for CUDA tensors (or raises) and runs
 the plain version for CPU tensors only.  ``segment_sum_op`` is the same
@@ -28,6 +32,8 @@ dtype name), or (V, M, n_dest, d, dtype name) over lanes.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 #: kernel launches per dtype, counted where the kernel is launched
@@ -35,6 +41,38 @@ LAUNCHES = {torch.float32: 0, torch.float64: 0}
 #: kernel launches per (M, n_dest, d, dtype name) or (V, M, n_dest, d,
 #: dtype name), counted at the same place
 SHAPE_LAUNCHES = {}
+
+#: the widest row the packed path takes (csrc/segment_sum.cu,
+#: kMaxPackedWidth), and the bytes of its per-lane value buffer
+MAX_PACKED_WIDTH = 16
+_PACKED_BUFFER_BYTES = 256
+#: the packed path's buffer depth, the one the kernel is built for (kDepth)
+PACKED_DEPTH = 32
+#: the kernel's paths
+ROW_WARP, PACKED_ROWS = "warp per row", "packed rows"
+
+
+class SegmentPlan(NamedTuple):
+    """How ``segment_sum`` launches the kernel at one (d, type)."""
+
+    path: str            # ROW_WARP or PACKED_ROWS
+    rows_per_warp: int   # destination rows one warp sums
+    depth: int           # a row's entries loaded before they are added
+                         # (packed rows; 0 on the warp-per-row path)
+
+
+def segment_plan(d: int, itemsize: int) -> SegmentPlan:
+    """The kernel's path for rows of d values of ``itemsize`` bytes: up to
+    16 columns ``32 // d`` rows share a warp, each lane (row, column)
+    loading ``depth`` values of its row before it adds them (at most
+    ``_PACKED_BUFFER_BYTES`` of registers, and the depth the kernel is
+    built for); wider rows take a warp each, lanes across the columns."""
+    if d < 1:
+        raise ValueError(f"segment_plan wants d >= 1, got {d}")
+    if d > MAX_PACKED_WIDTH:
+        return SegmentPlan(ROW_WARP, 1, 0)
+    depth = min(PACKED_DEPTH, _PACKED_BUFFER_BYTES // itemsize)
+    return SegmentPlan(PACKED_ROWS, 32 // d, depth)
 
 
 def segment_sum_reference(values: torch.Tensor, order: torch.Tensor,
@@ -101,6 +139,10 @@ def segment_sum(values: torch.Tensor, order: torch.Tensor,
                       device=values.device)
     if out.numel() == 0:
         return out
+    if M >= 2 ** 31:
+        raise ValueError(f"segment_sum's kernel takes fewer than 2**31 "
+                         f"value rows, got {M}")
+    plan = segment_plan(d, values.element_size())
     lib = load_library()
     fn = (lib.segment_sum_f32 if values.dtype == torch.float32
           else lib.segment_sum_f64)
@@ -108,7 +150,7 @@ def segment_sum(values: torch.Tensor, order: torch.Tensor,
         stream = torch.cuda.current_stream(values.device).cuda_stream
         err = fn(values.data_ptr(), order.data_ptr(), start.data_ptr(),
                  end.data_ptr(), out.data_ptr(), n_dest, d, lanes, M * d,
-                 n_dest * d, stream)
+                 n_dest * d, plan.rows_per_warp, plan.depth, stream)
     if err != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: CUDA error "
                            f"{err}")

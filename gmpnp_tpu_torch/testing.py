@@ -130,3 +130,24 @@ def sequential_segment_sum(values: torch.Tensor, order: torch.Tensor,
     for c in range(width):
         acc = acc + z.index_select(-2, table[:, c])
     return acc
+
+
+#: segment lengths around the segment-sum kernel's chunks (32 order
+#: entries a round on the warp-per-row path, a buffer of 32 on the packed
+#: one): empty, one, a chunk less one, a chunk, a chunk and one, several
+EDGE_SEGMENT_LENGTHS = (0, 1, 31, 32, 33, 100)
+
+
+def edge_segment_tables(rng: np.random.Generator, device=None):
+    """int64 (order, start, end) of a seeded table whose 13 destination
+    rows take each of EDGE_SEGMENT_LENGTHS entries twice and one row 5, in
+    a shuffled order, over value rows in a shuffled order (13 rows: not a
+    whole number of packed warps at any width)."""
+    counts = np.array(EDGE_SEGMENT_LENGTHS * 2 + (5,))
+    rng.shuffle(counts)
+    dest = np.repeat(np.arange(len(counts)), counts)
+    rng.shuffle(dest)
+    end = np.cumsum(counts)
+    return tuple(torch.as_tensor(t, dtype=torch.int64, device=device)
+                 for t in (np.argsort(dest, kind="stable"), end - counts,
+                           end))

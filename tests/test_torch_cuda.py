@@ -402,3 +402,54 @@ def test_hot_kernels_on_a_side_stream(cuda_device, dtype):
         inv_side = block_inv(A)
     side.synchronize()
     assert torch.equal(s, s_side) and torch.equal(inv, inv_side)
+
+
+# segment lengths around the kernel's chunks (testing.edge_segment_tables:
+# 0, 1, 31, 32, 33 and 100 entries) at every packed width the paths use,
+# the packed path's ends, and the warp-per-row path's widths
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [1, 5, 7, 9, 16, 17, 49, 81, 129])
+def test_segment_sum_kernel_edge_segments(cuda_device, d, dtype):
+    from gmpnp_tpu_torch.ops import segment_sum, segment_sum_op
+    from gmpnp_tpu_torch.testing import (edge_segment_tables,
+                                         sequential_segment_sum)
+
+    rng = np.random.default_rng(d)
+    order, start, end = edge_segment_tables(rng, cuda_device)
+    lanes = torch.as_tensor(rng.normal(size=(3, order.shape[0], d)),
+                            dtype=dtype, device=cuda_device)
+    got = segment_sum(lanes, order, start, end)
+    one = torch.stack([segment_sum(v.contiguous(), order, start, end)
+                       for v in lanes])
+    torch.cuda.synchronize()
+    assert torch.equal(got, sequential_segment_sum(lanes, order, start, end))
+    assert torch.equal(got, one)
+    assert torch.equal(got, segment_sum(lanes, order, start, end))
+    assert torch.equal(torch.func.vmap(
+        lambda v: segment_sum_op(v, order, start, end))(lanes), one)
+    side = torch.cuda.Stream(device=cuda_device)
+    with torch.cuda.stream(side):
+        on_side = segment_sum(lanes, order, start, end)
+    side.synchronize()
+    assert torch.equal(got, on_side)
+
+
+# batches under one warp's blocks and not a whole number of warps or CUDA
+# blocks at any f; the first ten blocks take every guard branch
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("f", list(range(1, 17)))
+def test_block_inv_kernel_ragged_batches(cuda_device, f, dtype):
+    from gmpnp_tpu_torch.ops import block_inv, block_inv_reference
+    from gmpnp_tpu_torch.testing import guard_blocks
+
+    for batch in (1, 31, 37, 130):
+        A = torch.as_tensor(guard_blocks(np.random.default_rng(batch),
+                                         batch, f).astype(dtype),
+                            device=cuda_device)
+        got = block_inv(A)
+        assert torch.equal(got, block_inv_reference(A))
+        assert torch.equal(got, block_inv(A))
+        nan = A.clone()
+        nan[-1, f - 1, 0] = float("nan")
+        assert torch.equal(torch.isnan(block_inv(nan)),
+                           torch.isnan(block_inv_reference(nan)))

@@ -13,6 +13,9 @@ Tolerances, each with its reason:
   f32: 1e-6 (the same, in f32 rounding);
 - the segment sum, f64: 1e-12 relative L2 (the two cumulative sums add in
   different orders: XLA's scan and torch's sequential loop);
+- the segment sum on the edge table: 1e-12 relative L2 against the
+  reference (as above) and, against the sequential sum, the cumsum's own
+  rounding (2 M eps max|prefix| per column);
 - the lane route and the wrappers against their plain versions: bitwise.
 """
 
@@ -39,15 +42,27 @@ from gmpnp_tpu_torch.ops.block_inv import (  # noqa: E402
     RANGE_LIM,
     block_inv,
     block_inv_reference,
+    blocks_per_warp,
 )
 from gmpnp_tpu_torch.ops.segment_sum import (  # noqa: E402
+    MAX_PACKED_WIDTH,
+    PACKED_DEPTH,
+    PACKED_ROWS,
+    ROW_WARP,
+    segment_plan,
     segment_sum,
     segment_sum_op,
     segment_sum_reference,
 )
 from gmpnp_tpu_torch.solve.smallblock import block_inv as smallblock_inv  # noqa: E402
 from gmpnp_tpu_torch.solve.timeloop import stack_lane_theta  # noqa: E402
-from gmpnp_tpu_torch.testing import guard_blocks, rel_l2  # noqa: E402
+from gmpnp_tpu_torch.testing import (  # noqa: E402
+    EDGE_SEGMENT_LENGTHS,
+    edge_segment_tables,
+    guard_blocks,
+    rel_l2,
+    sequential_segment_sum,
+)
 
 jax.config.update("jax_enable_x64", True)
 
@@ -215,3 +230,59 @@ def test_edl_assembly_lanes_equal_single_lanes():
         assert torch.equal(r[v], sp.residual(form, U[v], U[v], ths[v]))
         assert torch.equal(J.flat[v],
                            sp.jacobian(form, U[v], U[v], ths[v]).flat)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("d", list(range(1, 17)) + [17, 49, 81, 129])
+def test_segment_plan_packs_small_widths(d, itemsize):
+    """Up to 16 columns as many whole rows as fit share a warp, each lane
+    with a buffer of 32 entries (at most 256 bytes); wider rows take a
+    warp each."""
+    plan = segment_plan(d, itemsize)
+    if d <= MAX_PACKED_WIDTH:
+        assert plan.path == PACKED_ROWS
+        assert plan.rows_per_warp * d <= 32 < (plan.rows_per_warp + 1) * d
+        assert plan.depth == PACKED_DEPTH == 32
+        assert plan.depth * itemsize <= 256
+    else:
+        assert plan == (ROW_WARP, 1, 0)
+    assert {9: 3, 7: 4, 5: 6, 1: 32, 16: 2}.get(d, plan.rows_per_warp) == (
+        plan.rows_per_warp)
+    with pytest.raises(ValueError):
+        segment_plan(0, itemsize)
+
+
+@pytest.mark.parametrize("d", [1, 9, 81])
+def test_edge_segment_table_matches_reference(d):
+    """The kernels' edge table (rows of 0, 1, 31, 32, 33 and 100 entries):
+    the lengths it promises, and the plain version against gmpnp_tpu and
+    against the sequential sum."""
+    order, start, end = edge_segment_tables(np.random.default_rng(d))
+    lengths = (end - start).tolist()
+    assert sorted(lengths) == sorted(EDGE_SEGMENT_LENGTHS * 2 + (5,))
+    assert torch.equal(torch.sort(order).values,
+                       torch.arange(order.shape[0]))
+    values = np.random.default_rng(7).normal(size=(order.shape[0], d))
+    ref = np.asarray(jsegment_reduce(
+        jnp.asarray(values), *(jnp.asarray(t.numpy())
+                               for t in (order, start, end))))
+    v = torch.as_tensor(values)
+    got = segment_sum(v, order, start, end)
+    assert rel_l2(got.numpy(), ref) <= 1e-12
+    seq = sequential_segment_sum(v, order, start, end)
+    prefix = torch.cumsum(v[order], dim=0).abs().amax(dim=0)
+    bound = 2 * order.shape[0] * torch.finfo(v.dtype).eps * prefix
+    assert bool(((got - seq).abs() <= bound).all())
+    assert bool((got[end == start] == 0.0).all())
+
+
+@pytest.mark.parametrize("f", range(1, MAX_F + 1))
+def test_block_inv_blocks_per_warp(f):
+    """The kernel's f threads per block: as many whole blocks as fit in a
+    warp (3 at f=9, 4 at f=7, 6 at f=5); no f outside 1..16."""
+    g = blocks_per_warp(f)
+    assert g * f <= 32 < (g + 1) * f
+    assert {9: 3, 7: 4, 5: 6, 1: 32, 16: 2}.get(f, g) == g
+    for bad in (0, MAX_F + 1):
+        with pytest.raises(ValueError):
+            blocks_per_warp(bad)
