@@ -68,8 +68,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      point inside the Newton tolerance); the EDL CLI (H_OHP 1.1, exact),
      5 + 5 steps against 10, within 1e-12 with the same proton current;
    - sweeps: ``run_pore_voltage_sweep`` at L50R5 (carried, -0.5/-1.0/-1.5
-     V, 3 steps) and ``run_edl_voltage_sweep`` at L_n=50 um (-0.5/-1.0/-2.0,
-     5 steps, no kernel), each lane against its single-lane sweep (1e-12)
+     V, 2 steps) and ``run_edl_voltage_sweep`` at L_n=50 um (-0.5/-1.0/-2.0,
+     3 steps, no kernel), each lane against its single-lane sweep (1e-12)
      and the model's own run at that voltage (1e-5), and a K/Cs x 2-lane x
      2-step ``run_pore_voltage_cation_sweep``, with per-lane lines;
    - batched sweep lanes (the reference's chunk vmap modes), after one
@@ -157,6 +157,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import importlib
 import json
 import os
@@ -410,13 +411,47 @@ KERNEL_RECORDS = [
 ]
 
 
-#: the lane axis: (record name, phase-3 label, dtype, phase-4 path); the
-#: f32 lanes are checked and timed in phase 3 but run on no path (the
-#: batched pore sweep's refresh='step' solves in f64)
+#: the lane axis: (record name, phase-3 label, dtype, phase-4 path)
 LANE_RECORDS = [
     ("ell_spmv_f64_lanes", "slice_lanes", torch.float64,
      "sweep pore_3d batched"),
+    ("ell_spmv_f32_lanes", "krylov_mesh_lanes", torch.float32,
+     "sweep pore_3d gmres block_jacobi f32 batched"),
+    ("ell_spmv_f64_lanes_edl_1d", "edl_1d_lanes", torch.float64,
+     "sweep edl_1d tridiag_mp_solve f32 batched"),
+    ("ell_spmv_f64_lanes_amg_coarse", "amg_coarse_lanes", torch.float64,
+     "sweep pore_3d gmres amg f64 batched"),
 ]
+#: the mesh of the batched f32 GMRES + block-Jacobi sweep (BATCHED_KINDS):
+#: phase 4d's (2, 10), N=209, where its single-lane solves converge in
+#: every Newton iteration (at L50R5 they stop at maxiter in the cold
+#: step's last Newton iterations)
+KRYLOV_F32_MESH = (2, 10)
+
+
+def krylov_mesh_adj(dev):
+    """The adjacency of the L=50 nm, R=5 nm pore on KRYLOV_F32_MESH."""
+    from gmpnp_tpu_torch.fem.assembly import FemSpace
+    from gmpnp_tpu_torch.mesh import cylinder_mesh, pore_boundary_markers
+
+    n_rings, n_layers = KRYLOV_F32_MESH
+    mesh = pore_boundary_markers(
+        cylinder_mesh(50e-9, 5e-9, n_rings=n_rings, n_layers=n_layers),
+        50e-9, 5e-9)
+    return FemSpace.build(mesh, 9, quad_degree=2, device=dev).dev["adj"]
+
+
+def lane_shapes(dev):
+    """(phase-3 label, adjacency, f, dtypes) of the lane axis's shapes."""
+    labels = {"slice_lanes": (slice_adj, 9),
+              "krylov_mesh_lanes": (krylov_mesh_adj, 9),
+              "edl_1d_lanes": (edl_adj, 7),
+              "amg_coarse_lanes": (amg_coarse_adj, 9)}
+    out = []
+    for label, (adj_of, f) in labels.items():
+        dtypes = [dt for _, lb, dt, _ in LANE_RECORDS if lb == label]
+        out.append((label, adj_of(dev), f, dtypes))
+    return out
 
 
 def path_shapes(dev):
@@ -480,7 +515,6 @@ def check_kernels(dev):
               f"device_us={floor[dtype]!r}", flush=True)
 
     from gmpnp_tpu_torch.ops.ell_spmv import MODE_NAMES, launch_plan
-    from gmpnp_tpu_torch.ops.ell_spmv import VERTEX_WARP as VERTEX_WARP_MODE
 
     records = {}
     for label, adj, f, dtype in path_shapes(dev) + [
@@ -500,49 +534,51 @@ def check_kernels(dev):
                          "tile": plan.tile},
                 "max_abs_err": err, **rec, "floor_us": floor[dtype]}
 
-    # the lane axis at the batched pore sweep's shape (3 lanes of the
-    # L=50 nm, R=5 nm pore): each lane bitwise equal to a one-lane launch,
-    # from a contiguous tensor and from the lane-aligned layout the path
-    # uses, the copy path of each lane, the twin, times and the bound
+    # the lane axis at the batched sweeps' shapes (3 lanes each): each lane
+    # bitwise equal to a one-lane launch, from a contiguous tensor and from
+    # the lane-aligned layout the paths use, the copy path of each lane, the
+    # twin, times and the bound
     from gmpnp_tpu_torch.ops.ell_spmv import lane_aligned, lane_copy_paths
 
-    adj = slice_adj(dev)
-    for dtype in (torch.float32, torch.float64):
-        flat = torch.as_tensor(
-            rng.normal(size=(LANES,) + tuple(adj.shape[:1]) + (9, 135)),
-            dtype=dtype, device=dev)
-        x = torch.as_tensor(rng.normal(size=(LANES, adj.shape[0], 9)),
-                            dtype=dtype, device=dev)
-        single = torch.stack([ell_spmv(flat[v], adj, x[v])
-                              for v in range(LANES)])
-        ref = ell_spmv_reference(flat, adj, x)
-        aligned = lane_aligned(flat)
-        for name, operand in (("contiguous", flat), ("lane_aligned",
-                                                     aligned)):
-            y = ell_spmv(operand, adj, x)
-            torch.cuda.synchronize()
-            rels = [float((y[v] - ref[v]).norm() / ref[v].norm())
-                    for v in range(LANES)]
-            line = (f"kernel ell_spmv lanes {name} V={LANES} N="
-                    f"{adj.shape[0]} K=15 f=9 {dtype}: copy paths "
-                    f"{lane_copy_paths(operand)}, every lane bitwise equal "
-                    f"to its one-lane launch: {torch.equal(y, single)}, "
-                    f"rel_l2 per lane {rels}")
-            print(line, flush=True)
-            if not (torch.equal(y, single)
-                    and max(rels) <= KERNEL_TOL[dtype]):
-                raise AssertionError(line)
-        if lane_copy_paths(aligned) != ["bulk"] * LANES:
-            raise AssertionError(f"lane_aligned lanes {lane_copy_paths(aligned)}")
-        rec = kernel_times("slice_lanes", aligned, adj, x)
-        err = float((ell_spmv(aligned, adj, x) - ref).abs().max())
-        records["slice_lanes", dtype] = {
-            "shape": [LANES, adj.shape[0], 15, 9],
-            "plan": {"mode": MODE_NAMES[VERTEX_WARP_MODE],
-                     "lanes_per_vertex": 32,
-                     "tile": launch_plan(9, 15, flat.element_size()).tile,
-                     "lane_copy_paths": lane_copy_paths(aligned)},
-            "max_abs_err": err, **rec, "floor_us": floor[dtype]}
+    for label, adj, f, dtypes in lane_shapes(dev):
+        N, K = adj.shape
+        for dtype in dtypes:
+            flat = torch.as_tensor(
+                rng.normal(size=(LANES, N, f, K * f)), dtype=dtype,
+                device=dev)
+            x = torch.as_tensor(rng.normal(size=(LANES, N, f)),
+                                dtype=dtype, device=dev)
+            single = torch.stack([ell_spmv(flat[v], adj, x[v])
+                                  for v in range(LANES)])
+            ref = ell_spmv_reference(flat, adj, x)
+            aligned = lane_aligned(flat)
+            for name, operand in (("contiguous", flat),
+                                  ("lane_aligned", aligned)):
+                y = ell_spmv(operand, adj, x)
+                torch.cuda.synchronize()
+                rels = [float((y[v] - ref[v]).norm() / ref[v].norm())
+                        for v in range(LANES)]
+                line = (f"kernel ell_spmv lanes {name} V={LANES} N={N} "
+                        f"K={K} f={f} {dtype}: copy paths "
+                        f"{lane_copy_paths(operand)}, every lane bitwise "
+                        f"equal to its one-lane launch: "
+                        f"{torch.equal(y, single)}, rel_l2 per lane {rels}")
+                print(line, flush=True)
+                if not (torch.equal(y, single)
+                        and max(rels) <= KERNEL_TOL[dtype]):
+                    raise AssertionError(line)
+            if lane_copy_paths(aligned) != ["bulk"] * LANES:
+                raise AssertionError(
+                    f"lane_aligned lanes {lane_copy_paths(aligned)}")
+            rec = kernel_times(label, aligned, adj, x)
+            err = float((ell_spmv(aligned, adj, x) - ref).abs().max())
+            plan = launch_plan(f, K, flat.element_size())
+            records[label, dtype] = {
+                "shape": [LANES, N, K, f],
+                "plan": {"mode": MODE_NAMES[plan.mode],
+                         "lanes_per_vertex": plan.lanes, "tile": plan.tile,
+                         "lane_copy_paths": lane_copy_paths(aligned)},
+                "max_abs_err": err, **rec, "floor_us": floor[dtype]}
 
     # correctness and repeatability only: ragged last tiles, one neighbour,
     # widths on every kernel (f=5 and f=7 at the 1D meshes' K=3 and the
@@ -595,7 +631,7 @@ SEGMENT_RECORDS = [
 #: rule, f, dtype, phase-4 path): the slab equilibration (one block per
 #: vertex of the pore), the first level of the 1D cyclic reduction (half
 #: the next power of two of the EDL mesh's vertices), over lanes the
-#: batched EDL sweep's first level
+#: batched EDL sweeps' first level (f64 CR, f32 ``tridiag_mp_solve``)
 BLOCK_INV_RECORDS = [
     ("block_inv_f64_slab_gmpnp", "pore", 9, torch.float64, "pore_3d carried"),
     ("block_inv_f64_slab_rxn_diff_3d", "pore", 7, torch.float64,
@@ -606,6 +642,8 @@ BLOCK_INV_RECORDS = [
     ("block_inv_f64_cr_rxn_diff_1d", "cr", 5, torch.float64, "rxn_diff_1d"),
     ("block_inv_f64_cr_edl_lanes", "cr_lanes", 7, torch.float64,
      "sweep edl_1d batched"),
+    ("block_inv_f32_cr_tridiag_mp_lanes", "cr_lanes", 7, torch.float32,
+     "sweep edl_1d tridiag_mp_solve f32 batched"),
 ]
 HOT_SOURCES = {
     "segment_sum": ("gmpnp_tpu_torch/csrc/segment_sum.cu",
@@ -878,9 +916,10 @@ def check_block_inv(dev, spaces, rng, library=True):
 #: warp-per-row path's first width (17), the Jacobians' (49, 81) and one
 #: that takes two column blocks (129)
 SEGMENT_EDGE_WIDTHS = (1, 5, 7, 9, 16, 17, 49, 81, 129)
-#: batches of phase 3's edge checks of block_inv: under one warp's blocks,
-#: and not a whole number of warps or CUDA blocks at any f
-BLOCK_INV_EDGE_BATCHES = (1, 31, 37, 130)
+#: batches of phase 3's edge checks of block_inv: under one warp's blocks
+#: (3: a row of the batched block-Thomas solve, a block per lane), and not
+#: a whole number of warps or CUDA blocks at any f
+BLOCK_INV_EDGE_BATCHES = (1, 3, 31, 37, 130)
 
 
 def check_segment_sum_edges(dev, rng):
@@ -1288,6 +1327,90 @@ def main_path(dev_name):
     return launches
 
 
+def _digest(*tensors) -> str:
+    """sha256 of the tensors' bytes (host copies), in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _repeat_runs(dev_name):
+    """(label, run) of the repeatability phase: run() -> (states, projected
+    field, Newton counts, Krylov counts), each from the cold start."""
+    from gmpnp_tpu_torch.fem.projection import project_gradient
+    from gmpnp_tpu_torch.models import edl_1d
+    from gmpnp_tpu_torch.models import pore_3d
+    from gmpnp_tpu_torch.parallel import sweep
+
+    def pore(physics):
+        def run():
+            prog = pore_3d.build(_pore_cfg(refresh="carried",
+                                           physics=physics), device=dev_name)
+            _, hist, st, u = prog.run(n_steps=5)
+            # the field of the potential (GMPNP) or of CO2, as the outputs
+            # project it
+            col = (len(prog.config.species) if physics == "GMPNP"
+                   else prog.idx["CO2"])
+            field = project_gradient(prog.space, u[:, col], sign=-1.0)
+            return hist, field, st.newton_iters, st.linear_iters
+        return run
+
+    def edl():
+        cfg = edl_1d.EDL1DConfig(L_n=EDL_L_N)
+        cfg = dataclasses.replace(cfg, linear=dataclasses.replace(
+            cfg.linear, refresh="iter"))
+        prog = edl_1d.build(cfg, device=dev_name)
+        _, hist, st, _ = prog.run(n_steps=5)
+        field = project_gradient(prog.space, hist[-1][:, edl_1d.P],
+                                 sign=-1.0)
+        return hist, field, st.newton_iters, st.linear_iters
+
+    def batched():
+        u, st = sweep.run_pore_voltage_sweep(
+            _pore_cfg(refresh="carried"), [-0.5, -1.0, -1.5], n_steps=3,
+            chunk=LANES, device=dev_name)
+        space = pore_3d.build(_pore_cfg(), device=dev_name).space
+        field = torch.stack([project_gradient(space, u[v, -1, :, 8],
+                                              sign=-1.0)
+                             for v in range(u.shape[0])])
+        return u, field, st.newton_iters, st.linear_iters
+
+    return [("pore_3d carried L50R5", pore("GMPNP")),
+            ("rxn_diff_3d carried L50R5", pore("rxn_diff")),
+            ("edl_1d iter L_n=50um", edl),
+            ("sweep pore_3d batched L50R5", batched)]
+
+
+def repeat_paths(dev_name):
+    """Phase 4 "repeatable": each path run twice in this process from the
+    same cold start; the final states of every step, the projected field,
+    and the Newton and Krylov counts of every step must be bitwise equal.
+    Prints one ``repeatable`` line per path whose sha256 (over the states
+    and the field) two calls of the script on one tree must share."""
+    for label, run in _repeat_runs(dev_name):
+        t0 = time.perf_counter()
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        states, field, newton, krylov = first
+        same = (torch.equal(states, second[0])
+                and torch.equal(field, second[1])
+                and np.array_equal(newton, second[2])
+                and np.array_equal(krylov, second[3]))
+        line = (f"repeatable {label}: steps={states.shape[-3]} newton="
+                f"{np.asarray(newton).tolist()} krylov="
+                f"{np.asarray(krylov).tolist()} sha256="
+                f"{_digest(states, field)}")
+        print(f"{line} (two runs in {time.perf_counter() - t0!r} s)",
+              flush=True)
+        if not same:
+            raise AssertionError(
+                f"{label}: two runs from one cold start differ: second "
+                f"newton {np.asarray(second[2]).tolist()} krylov "
+                f"{np.asarray(second[3]).tolist()} sha256 "
+                f"{_digest(second[0], second[1])}; {line}")
+
+
 PORE_NAMES = ["H", "OH", "HCO3", "CO32", "CO2", "CO", "H2", "cat", "p"]
 EDL_NAMES = ["H", "OH", "HCO3", "CO32", "CO2", "cat", "p"]
 
@@ -1456,7 +1579,7 @@ def sweep_paths(dev_name):
 
     launches = {}
     cfg = _pore_cfg(refresh="carried")
-    volts, n = [-0.5, -1.0, -1.5], 3
+    volts, n = [-0.5, -1.0, -1.5], 2
     info = {}
     launches["sweep pore_3d"], u, _ = _sweep(
         "sweep pore_3d", lambda: sweep.run_pore_voltage_sweep(
@@ -1478,7 +1601,7 @@ def sweep_paths(dev_name):
             raise AssertionError(line)
 
     ecfg = edl_1d.EDL1DConfig(L_n=EDL_L_N)
-    volts, n = [-0.5, -1.0, -2.0], 5
+    volts, n = [-0.5, -1.0, -2.0], 3
     launches["sweep edl_1d"], u, _ = _sweep(
         "sweep edl_1d", lambda: sweep.run_edl_voltage_sweep(
             ecfg, volts, n_steps=n, device=dev_name), n, len(volts))
@@ -1708,6 +1831,71 @@ def batched_sweep_paths(dev_name):
         volts, 3, LANES, 1e-4, newton_gap=1)
     if info != {"chunk": LANES, "refresh": "step"}:
         raise AssertionError(f"the (3, 40) sweep ran {info}")
+    launches.update(batched_kind_paths(dev_name))
+    return launches
+
+
+#: the batched sweeps of every other linear kind (phase 4c): (label, model,
+#: LinearConfig fields, model config fields, steps, bar, Newton gap).
+#: Bars: f64 solves 1e-10 with the same Newton counts; a kind that solves
+#: in f32 (or preconditions in f32: the slab factorization) 1e-4 with
+#: Newton counts within 1, since its batched f32 products round otherwise
+#: than single ones and Newton stops at another point inside its
+#: tolerance.  The pore's Krylov kinds run the staged first step
+#: (dt_first_scale 1e-3) at L50R5, where the single-lane f64 solves
+#: converge in every Newton iteration (at the full first dt the cold-start
+#: Krylov solves stall at L50R5, ROADMAP queue 3), f32 GMRES at
+#: KRYLOV_F32_MESH; the dense kind runs at the (2, 8) mesh only (a test
+#: kind: (N f)^2 dense matrices).  The f64 Krylov kinds solve to 1e-10:
+#: each lane's Krylov arithmetic is its single-lane solve's, but the
+#: lane-batched residual and Jacobian (vmapped element products) round
+#: otherwise on the card, and at tol 1e-8 BiCGStab + SSOR carries that
+#: into states 1e-10 to 2e-9 apart from chunk=0's.
+BATCHED_KINDS = [
+    ("edl_1d tridiag_thomas", "edl", dict(kind="tridiag_thomas"), {}, 1,
+     1e-10, 0),
+    ("edl_1d tridiag_mp_solve f32", "edl", dict(solve_dtype="f32"), {}, 3,
+     1e-4, 1),
+    ("pore_3d slab cr", "pore", dict(slab_mode="cr", refresh="step"), {}, 2,
+     1e-4, 1),
+    ("pore_3d gmres block_jacobi f32", "pore",
+     dict(kind="gmres", precond="block_jacobi", solve_dtype="f32", tol=1e-5,
+          maxiter=1000),
+     dict(dt_first_scale=1e-3, mesh_resolution=KRYLOV_F32_MESH), 1, 1e-4,
+     1),
+    ("pore_3d bicgstab ssor f64", "pore",
+     dict(kind="bicgstab", precond="ssor", tol=1e-10, maxiter=2000),
+     dict(dt_first_scale=1e-3), 1, 1e-10, 0),
+    ("pore_3d gmres amg f64", "pore",
+     dict(kind="gmres", precond="amg", tol=1e-10, maxiter=1000),
+     dict(dt_first_scale=1e-3), 1, 1e-10, 0),
+    ("pore_3d dense (2, 8)", "pore", dict(kind="dense"),
+     dict(mesh_resolution=(2, 8)), 1, 1e-10, 0),
+]
+
+
+def batched_kind_paths(dev_name):
+    """Phase 4c, every linear kind batched: each BATCHED_KINDS sweep with
+    chunk=3 against its lanes run with chunk=0 (``batched_sweep``)."""
+    from gmpnp_tpu_torch.models import edl_1d
+    from gmpnp_tpu_torch.parallel import sweep
+
+    launches = {}
+    for label, model, lin, extra, n, bar, gap in BATCHED_KINDS:
+        if model == "edl":
+            cfg = edl_1d.EDL1DConfig(L_n=EDL_L_N, **extra)
+            run, volts = sweep.run_edl_voltage_sweep, [-0.5, -1.0, -2.0]
+        else:
+            cfg = dataclasses.replace(_pore_cfg(), **extra)
+            run, volts = sweep.run_pore_voltage_sweep, [-0.5, -1.0, -1.5]
+        cfg = dataclasses.replace(cfg, linear=dataclasses.replace(
+            cfg.linear, **lin))
+        launches[f"sweep {label} batched"], _ = batched_sweep(
+            f"sweep {label} batched",
+            lambda: run(cfg, volts, n_steps=n, chunk=LANES,
+                        device=dev_name),
+            lambda: run(cfg, volts, n_steps=n, chunk=0, device=dev_name),
+            volts, n, LANES, bar, newton_gap=gap)
     return launches
 
 
@@ -2697,13 +2885,18 @@ def main(argv=None) -> int:
         return 0
 
     shutil.rmtree(OUT, ignore_errors=True)
+    t0 = time.perf_counter()
     records = check_kernels(dev)
     hot = check_hot_kernels(dev)
-    launches = main_path("cuda")
-    for phase in (checkpoint_paths, sweep_paths, batched_sweep_paths,
-                  krylov_paths, newton_mode_paths, shard_paths):
-        launches.update(phase("cuda"))
-    checks("cuda")
+    print(f"phase 3 kernels: {time.perf_counter() - t0!r} s", flush=True)
+    launches = {}
+    for phase in (main_path, repeat_paths, checkpoint_paths, sweep_paths,
+                  batched_sweep_paths, krylov_paths, newton_mode_paths,
+                  shard_paths, checks):
+        t0 = time.perf_counter()
+        launches.update(phase("cuda") or {})
+        print(f"phase {phase.__name__}: {time.perf_counter() - t0!r} s",
+              flush=True)
 
     kernels = kernel_records(records, hot, launches)
     print(json.dumps({"kernels": kernels}), flush=True)

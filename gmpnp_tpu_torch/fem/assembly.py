@@ -120,16 +120,22 @@ class BlockELL(NamedTuple):
         return BlockELL(adj=self.adj, flat=flat, diag_slot=self.diag_slot)
 
     def to_dense(self) -> torch.Tensor:
-        """(N*f, N*f) dense matrix — tests / small direct solves only."""
+        """(N*f, N*f) dense matrix ((V, N*f, N*f) over lanes) — tests /
+        small direct solves only.  Slot k's blocks land on distinct (row,
+        column) pairs, so the K slots are added one after another in slot
+        order (a padded slot adds its zero block to the diagonal): no
+        atomic sum, the same bits on every run."""
         N, K, f, _ = self.shape4
-        rows = torch.arange(N, device=self.flat.device).repeat_interleave(K)
-        cols = self.adj.reshape(-1).long()
-        dense = torch.zeros((N, N, f, f), dtype=self.flat.dtype,
-                            device=self.flat.device)
-        # padded slots alias the diagonal with zero blocks: add is safe
-        dense.index_put_((rows, cols), self.blocks4().reshape(N * K, f, f),
-                         accumulate=True)
-        return dense.permute(0, 2, 1, 3).reshape(N * f, N * f)
+        lead = tuple(self.flat.shape[:-3])
+        dev = self.flat.device
+        rows = torch.arange(N, device=dev)
+        adj = self.adj.long()
+        blocks = self.flat.reshape(lead + (N, f, K, f))
+        dense = torch.zeros(lead + (N, N, f, f), dtype=self.flat.dtype,
+                            device=dev)
+        for k in range(K):
+            dense[..., rows, adj[:, k], :, :] += blocks[..., k, :]
+        return dense.transpose(-3, -2).reshape(lead + (N * f, N * f))
 
 
 def split_lane_theta(theta):
@@ -263,6 +269,8 @@ def _device_tables(space: "FemSpace") -> dict:
             "xq": torch.as_tensor(tab["xq"], **f64),
             "jac_tables": tuple(torch.as_tensor(a, **i64)
                                 for a in tab["jac_tables"]),
+            "res_tables": tuple(torch.as_tensor(a, **i64)
+                                for a in tab["res_tables"]),
         }
     return t
 
@@ -342,6 +350,11 @@ class FemSpace:
                          + t["slot"]).reshape(-1)
             t["jac_tables"] = _sorted_segment_tables(
                 fjac_dest, mesh.num_vertices * K)
+            # and its facet residual rows onto vertices (the port's own
+            # table: the reference scatter-adds them, which on the card
+            # would be an atomic sum whose order changes from run to run)
+            t["res_tables"] = _sorted_segment_tables(
+                t["nodes"].reshape(-1), mesh.num_vertices)
             ftabs.append((m, {k: np.asarray(v) if not isinstance(v, tuple)
                               else v for k, v in t.items()}))
         res_tables = _sorted_segment_tables(
@@ -428,7 +441,8 @@ class FemSpace:
                 lambda ue, upe, g, v, x: self._local_volume_residual(
                     form, ue, upe, g, v, x, theta)
             )(u_e, up_e, d["gradN"], d["vols"], d["xq"])
-        # scatter-free reduction onto vertices (sorted-segment sum)
+        # scatter-free reduction onto vertices (sorted-segment sum; the
+        # facet terms below too): the same bits on every run on the card
         C, nv = self.cells.shape
         r = _segment_reduce(
             r_e.reshape(C * nv, self.n_fields), *d["res_tables"])
@@ -442,8 +456,8 @@ class FemSpace:
                 lambda uf, mf, xf: self._local_facet_residual(
                     fn, uf, mf, tab["shape"], tab["weights"], xf, theta)
             )(u[tab["nodes"]], tab["meas"], tab["xq"])
-            r = r.index_add(0, tab["nodes"].reshape(-1),
-                            rf.reshape(-1, self.n_fields))
+            r = r + _segment_reduce(rf.reshape(-1, self.n_fields),
+                                    *tab["res_tables"])
         return r
 
     # -- lane-batched assembly (sweep lanes) ---------------------------------

@@ -8,13 +8,17 @@ For piecewise-constant integrands on P1 simplices the load vector is exact:
     b_a = sum_cells f_c * vol_c / (dim+1)
 and the projection solves the consistent P1 mass system  M x = b  (CG — the
 mass matrix is SPD and well-conditioned, a handful of iterations suffice).
+
+Every sum onto vertices (the mass product, the load vector, the lumped
+mass) is the space's sorted-segment sum over ``cells``: on the card the
+segment-sum kernel, so a projected field has the same bits on every run.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gmpnp_tpu_torch.fem.assembly import FemSpace
+from gmpnp_tpu_torch.fem.assembly import FemSpace, _segment_reduce
 from gmpnp_tpu_torch.sync import to_host
 
 
@@ -29,8 +33,13 @@ def mass_matvec(space: FemSpace, x: torch.Tensor) -> torch.Tensor:
           / (nv * (nv + 1.0)))
     x_e = x[cells]                             # (C, nv, comps)
     y_e = torch.einsum("ab,c,cbk->cak", Me, space.dev["vols"], x_e)
-    return torch.zeros_like(x).index_add(0, cells.reshape(-1),
-                                         y_e.reshape(-1, x.shape[1]))
+    return _onto_vertices(space, y_e)
+
+
+def _onto_vertices(space: FemSpace, v_e: torch.Tensor) -> torch.Tensor:
+    """(C, nv, k) per-element vertex values -> (N, k) vertex sums."""
+    return _segment_reduce(v_e.reshape(-1, v_e.shape[-1]),
+                           *space.dev["res_tables"])
 
 
 def project_cellwise(
@@ -43,15 +52,12 @@ def project_cellwise(
     vertex values (N,) or (N, k)."""
     squeeze = cell_values.dim() == 1
     f_c = cell_values[:, None] if squeeze else cell_values
-    cells = space.dev["cells"]
-    nv = cells.shape[1]
+    nv = space.dev["cells"].shape[1]
     # exact load vector for cellwise-constant f
     b_e = ((space.dev["vols"][:, None] / nv)[:, None, :]
            * torch.ones((1, nv, 1), dtype=f_c.dtype, device=f_c.device)
            * f_c[:, None, :])
-    b = torch.zeros((space.num_vertices, f_c.shape[1]), dtype=f_c.dtype,
-                    device=f_c.device)
-    b = b.index_add(0, cells.reshape(-1), b_e.reshape(-1, f_c.shape[1]))
+    b = _onto_vertices(space, b_e)
     x = _mass_cg(space, b, tol=tol, maxiter=maxiter)
     return x[:, 0] if squeeze else x
 
@@ -75,10 +81,8 @@ def _mass_cg(space: FemSpace, b: torch.Tensor, tol: float, maxiter: int):
     # Jacobi preconditioner: lumped mass (exact diagonal scaling surrogate)
     cells = space.dev["cells"]
     nv = cells.shape[1]
-    lump = torch.zeros(space.num_vertices, dtype=b.dtype, device=b.device)
-    lump = lump.index_add(
-        0, cells.reshape(-1),
-        (space.dev["vols"] / nv)[:, None].expand(cells.shape).reshape(-1))
+    lump = _onto_vertices(space, (space.dev["vols"] / nv).to(b.dtype)[
+        :, None, None].expand(cells.shape + (1,)))[:, 0]
     Minv = 1.0 / lump
 
     x = b * Minv[:, None]  # lumped-mass initial guess

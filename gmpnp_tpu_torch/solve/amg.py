@@ -26,7 +26,12 @@ Notay's AGMG.
   kept for parity; it is to be retired only on an H100 measurement with
   parity held.
 
-Used as ``LinearConfig(kind='gmres'|'bicgstab', precond='amg')``.
+Used as ``LinearConfig(kind='gmres'|'bicgstab', precond='amg')``.  The
+``*_lanes`` functions do the same for the V lanes of a batched sweep (one
+lane-batched BlockELL): one plan for every lane (the aggregation depends
+only on the mesh), its segment tables built once per matrix and shared by
+the lanes, every level's matvecs and smoothing one batched call over the
+lanes, its segment sums and the coarsest solve one call per lane.
 """
 
 from __future__ import annotations
@@ -132,6 +137,14 @@ def segment_sum(values: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return torch.cat([values, zero])[table].sum(dim=1)
 
 
+def segment_sum_lanes(values: torch.Tensor,
+                      table: torch.Tensor) -> torch.Tensor:
+    """:func:`segment_sum` of every lane: values (V, M, ...) -> (V, n_seg,
+    ...), lane by lane (a sum over the V lanes' members at once rounds
+    otherwise on the card)."""
+    return torch.stack([segment_sum(v, table) for v in values])
+
+
 class AMGLevelPlan(NamedTuple):
     """Host-built static structure of one coarsening step."""
     agg: np.ndarray             # (N,) fine-vertex -> coarse-vertex
@@ -182,6 +195,26 @@ def galerkin_coarse(ell: BlockELL, lvl: AMGLevelPlan) -> BlockELL:
         torch.as_tensor(lvl.coarse_diag_slot, dtype=torch.int64, device=dev))
 
 
+def galerkin_coarse_lanes(ell: BlockELL, lvl: AMGLevelPlan,
+                          table: torch.Tensor) -> BlockELL:
+    """:func:`galerkin_coarse` of a lane-batched BlockELL, with the level's
+    Galerkin segment table (``segment_table(lvl.scatter, Nc * Kc)`` on the
+    device) given, so that every lane shares one."""
+    V = ell.lanes
+    N, K, f, _ = ell.shape4
+    Nc = lvl.nagg
+    Kc = lvl.coarse_adj.shape[1]
+    dev = ell.flat.device
+    blocks = ell.flat.reshape(V, N, f, K, f).transpose(2, 3)
+    coarse = segment_sum_lanes(blocks.reshape(V, N * K, f * f), table)
+    flat = coarse.reshape(V, Nc, Kc, f, f).transpose(2, 3).reshape(
+        V, Nc, f, Kc * f)
+    return BlockELL(
+        torch.as_tensor(lvl.coarse_adj, dtype=torch.int32, device=dev),
+        flat,
+        torch.as_tensor(lvl.coarse_diag_slot, dtype=torch.int64, device=dev))
+
+
 class AMGLevelValues(NamedTuple):
     ell: BlockELL
     Dinv: torch.Tensor          # (N, f, f) inverse diagonal blocks
@@ -213,6 +246,34 @@ def amg_prepare(ell: BlockELL, plan: AMGPlan) -> AMGValues:
     return AMGValues(levels=tuple(levels), coarsest_lu=(lu, piv))
 
 
+def amg_prepare_lanes(ell: BlockELL, plan: AMGPlan) -> AMGValues:
+    """:func:`amg_prepare` of a lane-batched BlockELL: every level's
+    values gain the lane axis, and ``coarsest_lu`` holds each lane's
+    (lu, pivots), factored lane by lane; the aggregation tables are the
+    plan's, built on the device once for all lanes."""
+    from gmpnp_tpu_torch.ops.ell_spmv import lane_aligned
+
+    levels = []
+    cur = ell
+    i64 = dict(dtype=torch.int64, device=ell.flat.device)
+    for lvl in plan.levels:
+        Kc = lvl.coarse_adj.shape[1]
+        levels.append(AMGLevelValues(
+            ell=cur, Dinv=block_inv(cur.diag_blocks()),
+            agg=torch.as_tensor(lvl.agg, **i64),
+            restrict=torch.as_tensor(segment_table(lvl.agg, lvl.nagg),
+                                     **i64)))
+        cur = galerkin_coarse_lanes(cur, lvl, torch.as_tensor(
+            segment_table(lvl.scatter, lvl.nagg * Kc), **i64))
+        cur = BlockELL(cur.adj, lane_aligned(cur.flat), cur.diag_slot)
+    # the coarsest f32 LU lane by lane, each lane's as ``amg_prepare``'s
+    # (a batched f32 LU pivots and rounds otherwise on the card): a tuple
+    # of V (lu, pivots) pairs
+    dense = cur.to_dense().to(torch.float32)
+    return AMGValues(levels=tuple(levels), coarsest_lu=tuple(
+        torch.linalg.lu_factor(dense[v]) for v in range(dense.shape[0])))
+
+
 def _smooth(ell: BlockELL, Dinv, r, z, omega, sweeps):
     """Damped block-Jacobi: z <- z + omega * Dinv (r - A z)."""
     for i in range(sweeps):
@@ -240,6 +301,52 @@ def amg_vcycle(vals: AMGValues, plan: AMGPlan, r: torch.Tensor,
         return _smooth(lv.ell, lv.Dinv, r_i, z, omega, post)
 
     return cyc(0, r)
+
+
+def _smooth_lanes(ell: BlockELL, Dinv, r, z, omega, sweeps):
+    """:func:`_smooth` of V lanes: r, z (V, N, f), Dinv (V, N, f, f)."""
+    for i in range(sweeps):
+        resid = r if z is None else r - ell.matvec(z)
+        upd = omega * torch.einsum("vnfg,vng->vnf", Dinv, resid)
+        z = upd if z is None else z + upd
+    return z
+
+
+def amg_vcycle_lanes(vals: AMGValues, plan: AMGPlan, r: torch.Tensor,
+                     omega: float = 0.67, pre: int = 1, post: int = 1
+                     ) -> torch.Tensor:
+    """:func:`amg_vcycle` of V lanes (values of :func:`amg_prepare_lanes`):
+    r (V, N, f) -> z (V, N, f); the coarsest solve lane by lane."""
+
+    def cyc(i, r_i):
+        if i == len(plan.levels):
+            x = torch.stack([
+                torch.linalg.lu_solve(lu, piv,
+                                      b.reshape(-1, 1).to(torch.float32))
+                for (lu, piv), b in zip(vals.coarsest_lu, r_i)])
+            return x.to(r_i.dtype).reshape(r_i.shape)
+        lv = vals.levels[i]
+        z = _smooth_lanes(lv.ell, lv.Dinv, r_i, None, omega, pre)
+        r_c = segment_sum_lanes(r_i - lv.ell.matvec(z), lv.restrict)
+        z = z + cyc(i + 1, r_c)[:, lv.agg]
+        return _smooth_lanes(lv.ell, lv.Dinv, r_i, z, omega, post)
+
+    return cyc(0, r)
+
+
+def amg_preconditioner_lanes(ell: BlockELL, plan: AMGPlan,
+                             omega: float = 0.67, pre: int = 1,
+                             post: int = 1
+                             ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """:func:`amg_preconditioner` of a lane-batched BlockELL; r, out:
+    (V, N, f)."""
+    vals = amg_prepare_lanes(ell, plan)
+
+    def apply(r):
+        return amg_vcycle_lanes(vals, plan, r, omega=omega, pre=pre,
+                                post=post)
+
+    return apply
 
 
 def amg_preconditioner(ell: BlockELL, plan: AMGPlan,

@@ -296,6 +296,28 @@ def _identity_pad_lanes(A, B, C, n_pad):
             torch.cat([C, zed], 1))
 
 
+def block_tridiag_solve_thomas_lanes(lower, diag, upper, rhs):
+    """``block_tridiag_solve_thomas`` over lanes: (V, N, f, f) bands, rhs
+    (V, N, f) -> x (V, N, f); each row's steps one batched call over the
+    lanes."""
+    V, N, f, _ = diag.shape
+    Cp = torch.zeros((V, f, f), dtype=diag.dtype, device=diag.device)
+    dp = torch.zeros((V, f, 1), dtype=diag.dtype, device=diag.device)
+    Cps, dps = [], []
+    for n in range(N):
+        A = lower[:, n]
+        dinv = block_inv(diag[:, n] - A @ Cp)
+        Cp, dp = dinv @ upper[:, n], dinv @ (rhs[:, n, :, None] - A @ dp)
+        Cps.append(Cp)
+        dps.append(dp)
+    x = torch.zeros((V, f, 1), dtype=diag.dtype, device=diag.device)
+    xs = [None] * N
+    for n in range(N - 1, -1, -1):
+        x = dps[n] - Cps[n] @ x
+        xs[n] = x
+    return torch.stack(xs, 1)[..., 0]
+
+
 def block_tridiag_solve_cr_lanes(lower, diag, upper, rhs):
     """``block_tridiag_solve_cr`` over lanes: (V, N, f, f) bands, rhs
     (V, N, f) -> x (V, N, f)."""
@@ -386,7 +408,10 @@ def block_tridiag_apply_cr_lanes(factors: CRFactors, rhs: torch.Tensor):
         D = range_clamp(D_ev - _mvl(lev.alpha, D_left)
                         - _mvl(lev.gamma, D_od))
 
-    x = (factors.Binv_top @ D[:, 0, :, None])[:, None, :, 0]   # (V, 1, f)
+    # the top solve lane by lane: the single-lane function's own
+    # matrix-vector call, so each lane's apply has its bits
+    x = torch.stack([top @ d for top, d in zip(factors.Binv_top,
+                                               D[:, 0])])[:, None]  # (V, 1, f)
     for lev, D_od in zip(reversed(factors.levels), reversed(odd_rhs)):
         x_right = torch.cat([x[:, 1:], zv1], 1)
         r_od = range_clamp(D_od - _mvl(lev.A_od, x)
@@ -394,6 +419,37 @@ def block_tridiag_apply_cr_lanes(factors: CRFactors, rhs: torch.Tensor):
         x_odd = range_clamp(_mvl(lev.Binv_od, r_od))
         x = torch.stack([x, x_odd], dim=2).reshape(V, 2 * x.shape[1], f)
     return x[:, :N]
+
+
+def tridiag_mp_solve_lanes(ell: BlockELL, rhs: torch.Tensor,
+                           tol: float = 1.0e-8, max_refine: int = 40,
+                           active: Optional[np.ndarray] = None):
+    """``tridiag_mp_solve`` over lanes: a lane-batched BlockELL, rhs
+    (V, N, f).  The f64 equilibration and the f32 CR factor and apply of
+    every lane at once, then f64 GMRES over the lanes (``gmres_lanes``:
+    each lane refines until it meets its own tol) whose matvec is one
+    launch of the block-ELL kernel's lane axis.  ``active`` (V,) bool
+    leaves the other lanes out.  Returns a KrylovResult whose ``resnorm``,
+    ``iters`` and ``converged`` are (V,) arrays."""
+    from gmpnp_tpu_torch.ops.ell_spmv import lane_aligned
+
+    Dinv0 = block_inv(ell.diag_blocks())
+    ell_eq = ell.scale_rows(Dinv0)
+    b = _mvl(Dinv0, rhs)
+    lo, di, up = block_tridiag_from_ell_lanes(ell_eq)
+    fac = block_tridiag_factor_cr_lanes(lo.to(torch.float32),
+                                        di.to(torch.float32),
+                                        up.to(torch.float32))
+    ell_eq = BlockELL(ell_eq.adj, lane_aligned(ell_eq.flat),
+                      ell_eq.diag_slot)
+
+    def solve32(r):
+        return block_tridiag_apply_cr_lanes(
+            fac, r.to(torch.float32)).to(rhs.dtype)
+
+    return gmres_lanes(ell_eq.matvec, b, Minv=solve32, tol=tol,
+                       restart=min(max_refine, 30), maxiter=max_refine,
+                       active=active)
 
 
 # ---------------------------------------------------------------------------
@@ -407,6 +463,18 @@ def block_jacobi_preconditioner(ell: BlockELL) -> Callable[[torch.Tensor],
 
     def apply(z):
         return _mv(Dinv, z)
+
+    return apply
+
+
+def block_jacobi_preconditioner_lanes(ell: BlockELL) -> Callable[
+        [torch.Tensor], torch.Tensor]:
+    """``block_jacobi_preconditioner`` of a lane-batched BlockELL; z, out:
+    (V, N, f)."""
+    Dinv = block_inv(ell.diag_blocks())
+
+    def apply(z):
+        return _mvl(Dinv, z)
 
     return apply
 
@@ -432,6 +500,35 @@ def greedy_vertex_coloring(adj: "np.ndarray") -> "np.ndarray":
     return colors
 
 
+def _color_lists(colors: "np.ndarray", dev) -> list:
+    """Each color's vertex ids as a device tensor, padded to the longest
+    with its first vertex, as in the reference (a padded row computes the
+    same value as the row it repeats, so which duplicate write lands does
+    not matter)."""
+    colors_np = np.asarray(colors)
+    nc = int(colors_np.max()) + 1
+    maxlen = max((colors_np == c).sum() for c in range(nc))
+    lists = []
+    for c in range(nc):
+        verts = np.nonzero(colors_np == c)[0]
+        pad = np.full(maxlen - len(verts), verts[0], dtype=np.int64)
+        lists.append(torch.as_tensor(np.concatenate([verts, pad]),
+                                     dtype=torch.int64, device=dev))
+    return lists
+
+
+def _diag_mask(ell: BlockELL) -> torch.Tensor:
+    """(N, K*f) bool: each row's diagonal block columns (diag_slot*f ..
+    diag_slot*f + f-1) of the flat layout."""
+    N, K, f, _ = ell.shape4
+    dev = ell.flat.device
+    dcols = (ell.diag_slot[:, None] * f
+             + torch.arange(f, device=dev)[None, :])
+    dmask = torch.zeros((N, K * f), dtype=torch.bool, device=dev)
+    dmask.scatter_(1, dcols, True)
+    return dmask
+
+
 def multicolor_ssor_preconditioner(
     ell: BlockELL,
     colors: "np.ndarray",
@@ -452,27 +549,14 @@ def multicolor_ssor_preconditioner(
     The off-diagonal rows of a color are one gather of their block rows
     and of ``z[adj]`` and one batched matrix-vector product (``bmm``).
     """
-    N, K, f, _ = ell.shape4
+    _, K, f, _ = ell.shape4
     dev = ell.flat.device
-    colors_np = np.asarray(colors)
-    nc = int(colors_np.max()) + 1
-    maxlen = max((colors_np == c).sum() for c in range(nc))
-    color_lists = []
-    for c in range(nc):
-        verts = np.nonzero(colors_np == c)[0]
-        pad = np.full(maxlen - len(verts), verts[0], dtype=np.int64)
-        color_lists.append(torch.as_tensor(np.concatenate([verts, pad]),
-                                           dtype=torch.int64, device=dev))
+    color_lists = _color_lists(colors, dev)
+    nc = len(color_lists)
 
     D = ell.diag_blocks() / omega
     Dinv = block_inv(D)
-    # off-diagonal part: the flat layout with each row's diagonal block
-    # (columns diag_slot*f .. diag_slot*f + f-1) zeroed
-    dcols = (ell.diag_slot[:, None] * f
-             + torch.arange(f, device=dev)[None, :])
-    dmask = torch.zeros((N, K * f), dtype=torch.bool, device=dev)
-    dmask.scatter_(1, dcols, True)
-    offflat = ell.flat.masked_fill(dmask[:, None, :], 0.0)
+    offflat = ell.flat.masked_fill(_diag_mask(ell)[:, None, :], 0.0)
     adj = ell.adj.long()
 
     def offdiag_rows(z, verts):
@@ -497,6 +581,53 @@ def multicolor_ssor_preconditioner(
     def apply(r):
         z = ssor_solve(r)
         for _ in range(sweeps - 1):   # extra sweeps = stationary iteration
+            z = z + ssor_solve(r - ell.matvec(z))
+        return z
+
+    return apply
+
+
+def multicolor_ssor_preconditioner_lanes(
+    ell: BlockELL,
+    colors: "np.ndarray",
+    sweeps: int = 1,
+    omega: float = 1.0,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``multicolor_ssor_preconditioner`` of a lane-batched BlockELL (r,
+    out: (V, N, f)): the block inverses, the diagonal scaling and the extra
+    sweeps' matvecs are one call over the lanes; each color's gathers,
+    off-diagonal products and block solves are the single-lane calls, lane
+    by lane."""
+    _, K, f, _ = ell.shape4
+    color_lists = _color_lists(colors, ell.flat.device)
+    nc = len(color_lists)
+    D = ell.diag_blocks() / omega
+    Dinv = block_inv(D)
+    offflat = ell.flat.masked_fill(_diag_mask(ell)[None, :, None, :], 0.0)
+    adj = ell.adj.long()
+
+    def sweep(z, r, order):
+        # lane by lane, the single-lane preconditioner's own calls on
+        # operands gathered afresh: one product over the V lanes' rows of a
+        # color, or one on a lane's slice of them, rounds otherwise on the
+        # card
+        for c in order:
+            verts = color_lists[c]
+            nbrs = adj[verts]
+            for zl, rl, offl, Dl in zip(z, r, offflat, Dinv):
+                zg = zl[nbrs].reshape(len(verts), K * f, 1)
+                rhs = rl[verts] - torch.bmm(offl[verts], zg)[..., 0]
+                zl[verts] = _mv(Dl[verts], rhs)
+        return z
+
+    def ssor_solve(r):
+        z = sweep(torch.zeros_like(r), r, range(nc))
+        z = _mvl(D, z)
+        return sweep(torch.zeros_like(r), z, range(nc - 1, -1, -1))
+
+    def apply(r):
+        z = ssor_solve(r)
+        for _ in range(sweeps - 1):
             z = z + ssor_solve(r - ell.matvec(z))
         return z
 
@@ -642,8 +773,27 @@ def gmres(
     return KrylovResult(x.reshape(shape), float(rnorm), total_it, conv)
 
 
+# The Krylov lanes' reductions and products: each lane takes the
+# single-lane solver's own call on its slice (V small calls where a batched
+# product or row reduction would round otherwise, on the card too), so a
+# lane's iterates follow its single-lane solve's arithmetic.
+
 def _norm_lanes(v):
-    return torch.sqrt(torch.sum(v * v, dim=-1))
+    """(V, n) -> (V,): ``_norm`` of each lane."""
+    return torch.stack([_norm(x) for x in v])
+
+
+def _dot_lanes(a, b):
+    """(V, n), (V, n) -> (V,): ``torch.dot`` of each lane."""
+    return torch.stack([torch.dot(x, y) for x, y in zip(a, b)])
+
+
+def _scalar_squares(a: np.ndarray) -> np.ndarray:
+    """``v ** 2`` of each entry as a numpy scalar squares it (``gmres``'s
+    Givens arithmetic): the scalar power goes through the C library's pow,
+    which for about one value in a thousand rounds otherwise than the
+    array power's product."""
+    return np.array([v ** 2 for v in a], dtype=a.dtype)
 
 
 def gmres_lanes(
@@ -662,9 +812,11 @@ def gmres_lanes(
     Each lane has its own Arnoldi basis, Givens rotations, residual target
     and stopping: a lane that meets its target (or, between cycles, spends
     its ``maxiter``) is frozen while the others go on, as the lanes of the
-    reference's vmapped ``while_loop`` are.  Each Arnoldi step reads the
-    (V, j+2) block of new Hessenberg columns back to the host in one sync,
-    not one per lane.  ``active`` (V,) bool leaves the other lanes out
+    reference's vmapped ``while_loop`` are.  The matvec and the
+    preconditioner take every lane at once; each lane's CGS2 products and
+    norms are ``gmres``'s own calls on its slice.  Each Arnoldi step reads
+    the (V, j+2) block of new Hessenberg columns back to the host in one
+    sync, not one per lane.  ``active`` (V,) bool leaves the other lanes out
     altogether (zero iterations, x = 0).  Returns a KrylovResult whose
     ``resnorm``, ``iters`` and ``converged`` are (V,) numpy arrays."""
     V = b.shape[0]
@@ -712,19 +864,24 @@ def gmres_lanes(
             if done.all():
                 break
             step = ~done
-            # every lane steps on the device (a lane that is done computes
-            # rows it never uses, cleared before the update below), so the
-            # only sync is the read of the new columns
+            # the matvec and preconditioner step every lane on the device
+            # (a lane that is done computes rows it never uses, cleared
+            # before the update below), so the only sync is the read of
+            # the new columns
             w = mv(pc(Vb[:, j]))
-            # CGS2 per lane; rows of a lane's basis beyond j are zero
-            h1 = torch.bmm(Vb, w[:, :, None])[:, :, 0]
-            w = w - torch.bmm(h1[:, None, :], Vb)[:, 0]
-            h2 = torch.bmm(Vb, w[:, :, None])[:, :, 0]
-            w = w - torch.bmm(h2[:, None, :], Vb)[:, 0]
-            hlast = _norm_lanes(w)
-            Vb[:, j + 1] = w / torch.clamp_min(hlast, _TINY)[:, None]
-            hcol_t = h1 + h2
-            hcol_t[:, j + 1] = hlast
+            # CGS2 of each stepping lane, ``gmres``'s own calls; rows of a
+            # lane's basis beyond j are zero
+            hcol_t = torch.zeros((V, m + 1), dtype=dtype, device=dev)
+            for lane in np.nonzero(step)[0]:
+                Vl, wl = Vb[lane], w[lane]
+                h1 = Vl @ wl
+                wl = wl - h1 @ Vl
+                h2 = Vl @ wl
+                wl = wl - h2 @ Vl
+                hlast = _norm(wl)
+                Vl[j + 1] = wl / torch.clamp_min(hlast, _TINY)
+                hcol_t[lane] = h1 + h2
+                hcol_t[lane, j + 1] = hlast
             hcol = to_host(hcol_t[:, :j + 2]).astype(nd)
             # previous rotations, then the new one, lane by lane (the
             # scalar arithmetic of ``gmres`` on (V,) arrays)
@@ -732,7 +889,8 @@ def gmres_lanes(
                 hi, hip = hcol[:, i].copy(), hcol[:, i + 1].copy()
                 hcol[:, i] = cs[:, i] * hi + sn[:, i] * hip
                 hcol[:, i + 1] = -sn[:, i] * hi + cs[:, i] * hip
-            denom = np.sqrt(hcol[:, j] ** 2 + hcol[:, j + 1] ** 2)
+            denom = np.sqrt(_scalar_squares(hcol[:, j])
+                            + _scalar_squares(hcol[:, j + 1]))
             safe = np.maximum(denom, tiny)
             pos = denom > 0
             c = np.where(pos, hcol[:, j] / safe, nd(1.0))
@@ -759,10 +917,10 @@ def gmres_lanes(
                                H[lane, :m, :m], np.eye(m, dtype=nd))
                 gv = np.where(used, g[lane, :m], nd(0.0))
                 Y[lane] = triangular_solve_upper(Hsq, gv)
-            y_t = torch.as_tensor(Y, dtype=dtype).to(dev)
             upd_t = torch.as_tensor(upd, device=dev)[:, None]
-            x = torch.where(upd_t, x + pc(torch.einsum(
-                "vmn,vm->vn", Vb[:, :m], y_t)), x)
+            x = torch.where(upd_t, x + pc(torch.stack(
+                [Vl[:m].T @ torch.as_tensor(yl, dtype=dtype).to(dev)
+                 for Vl, yl in zip(Vb, Y)])), x)
             rn = to_host(_norm_lanes(bflat - mv(x))).astype(nd)
             rnorm = np.where(upd, rn, rnorm)
         total_it += np.where(going, k, 0)
@@ -838,8 +996,102 @@ def bicgstab(
                         bool(rnorm <= target))
 
 
+def bicgstab_lanes(
+    matvec: Callable,
+    b: torch.Tensor,
+    Minv: Optional[Callable] = None,
+    tol: float = 1e-8,
+    atol: float = 0.0,
+    maxiter: int = 500,
+    active: Optional[np.ndarray] = None,
+) -> KrylovResult:
+    """``bicgstab`` over sweep lanes: b (V, ...), ``matvec`` and ``Minv``
+    map (V, ...) to (V, ...) (one batched call for all lanes).
+
+    Each lane keeps its own scalars, residual target and stopping rule
+    (``bicgstab``'s, tested before every iteration); a lane that stops is
+    frozen by a select while the others go on, as the lanes of the
+    reference's vmapped ``while_loop`` are, so its ``x`` and ``iters`` are
+    its single-lane solve's.  The (V,) predicate is one host read per
+    iteration, whatever V is.  ``active`` (V,) bool leaves the other lanes
+    out altogether (zero iterations, x = 0).  Returns a KrylovResult whose
+    ``resnorm``, ``iters`` and ``converged`` are (V,) numpy arrays."""
+    V = b.shape[0]
+    shape = b.shape
+    n = b[0].numel()
+    dtype = b.dtype
+    dev = b.device
+    nd = _NP_DTYPE[dtype]
+    bflat = b.reshape(V, n)
+    if Minv is None:
+        Minv = lambda z: z
+    mv = lambda v: matvec(v.reshape(shape)).reshape(V, n)
+    pc = lambda v: Minv(v.reshape(shape)).reshape(V, n)
+
+    x = torch.zeros_like(bflat)
+    r = bflat - mv(x)
+    rhat = r
+    bnorm = to_host(_norm_lanes(bflat)).astype(nd)
+    target = np.maximum(np.maximum(nd(tol) * bnorm, nd(atol)), nd(_TINY))
+    target_t = torch.as_tensor(target, device=dev)
+    live = (np.ones(V, bool) if active is None
+            else np.asarray(active, bool).copy())
+
+    def going(r, rho, omega):
+        rn = _norm_lanes(r)
+        healthy = (torch.isfinite(rn) & torch.isfinite(rho)
+                   & torch.isfinite(omega) & (torch.abs(rho) > _TINY)
+                   & (torch.abs(omega) > _TINY) & (rn < 1e12))
+        return to_host((rn > target_t) & healthy).astype(bool)
+
+    p = torch.zeros_like(bflat)
+    v = torch.zeros_like(bflat)
+    one = torch.ones(V, dtype=dtype, device=dev)
+    rho, alpha, omega = one, one, one
+    it = np.zeros(V, np.int64)
+    go = live & (it < maxiter)
+    if go.any():
+        go &= going(r, rho, omega)
+    while go.any():
+        g = torch.as_tensor(go, device=dev)
+        gv = g[:, None]
+        rho_new = _dot_lanes(rhat, r)
+        beta = (rho_new / _guard(rho)) * (alpha / _guard(omega))
+        p_new = r + beta[:, None] * (p - omega[:, None] * v)
+        phat = pc(p_new)
+        v_new = mv(phat)
+        alpha_new = rho_new / _guard(_dot_lanes(rhat, v_new))
+        s = r - alpha_new[:, None] * v_new
+        shat = pc(s)
+        t = mv(shat)
+        omega_new = _dot_lanes(t, s) / _guard(_dot_lanes(t, t))
+        x = torch.where(gv, x + alpha_new[:, None] * phat
+                        + omega_new[:, None] * shat, x)
+        r = torch.where(gv, s - omega_new[:, None] * t, r)
+        p = torch.where(gv, p_new, p)
+        v = torch.where(gv, v_new, v)
+        rho = torch.where(g, rho_new, rho)
+        alpha = torch.where(g, alpha_new, alpha)
+        omega = torch.where(g, omega_new, omega)
+        it += go
+        go = live & (it < maxiter)
+        if go.any():
+            go &= going(r, rho, omega)
+    rnorm = to_host(_norm_lanes(r)).astype(nd)
+    return KrylovResult(x.reshape(shape), rnorm.astype(np.float64), it,
+                        live & (rnorm <= target))
+
+
 def dense_solve(ell: BlockELL, rhs: torch.Tensor) -> torch.Tensor:
     """Direct dense solve (tests / small systems)."""
     N, _, f, _ = ell.shape4
     x = torch.linalg.solve(ell.to_dense(), rhs.reshape(-1))
     return x.reshape(N, f)
+
+
+def dense_solve_lanes(ell: BlockELL, rhs: torch.Tensor) -> torch.Tensor:
+    """``dense_solve`` of a lane-batched BlockELL: rhs (V, N, f), one
+    batched dense solve of the lanes' (V, N*f, N*f) matrices."""
+    V = rhs.shape[0]
+    x = torch.linalg.solve(ell.to_dense(), rhs.reshape(V, -1))
+    return x.reshape(rhs.shape)

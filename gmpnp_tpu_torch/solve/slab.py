@@ -481,6 +481,90 @@ def slab_solve_cr(factors: CRFactors, d: torch.Tensor) -> torch.Tensor:
     return x[..., 0] if vec else x
 
 
+def _cr_level_lanes(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor):
+    """``_cr_level`` of V lanes: bands (V, S, m, m); the level's products
+    one batched call over the lanes, its refined inverses one call per
+    lane (``_inv_refined_lanes``), each lane's as the single lane's."""
+    V, S, m = A.shape[0], A.shape[1], A.shape[2]
+    if S % 2 == 1:
+        eye = torch.eye(m, dtype=A.dtype, device=A.device).expand(V, 1, m, m)
+        zpad = torch.zeros((V, 1, m, m), dtype=A.dtype, device=A.device)
+        A = torch.cat([A, zpad], 1)
+        B = torch.cat([B, eye], 1)
+        C = torch.cat([C, zpad], 1)
+        S += 1
+    h = S // 2
+    Ae, Ao = A.reshape(V, h, 2, m, m).unbind(2)
+    Be, Bo = B.reshape(V, h, 2, m, m).unbind(2)
+    Ce, Co = C.reshape(V, h, 2, m, m).unbind(2)
+    invBo = _inv_refined_lanes(Bo)
+    zero = torch.zeros((V, 1, m, m), dtype=A.dtype, device=A.device)
+    L = torch.cat([zero, Ae[:, 1:] @ invBo[:, :h - 1]], 1)
+    U = Ce @ invBo
+    Co_prev = torch.cat([zero, Co[:, :h - 1]], 1)
+    B2 = Be - L @ Co_prev - U @ Ao
+    A2 = -torch.cat([zero, L[:, 1:] @ Ao[:, :h - 1]], 1)
+    C2 = -(U @ Co)
+    return CRLevel(invBo=invBo, L=L, U=U, Ao=Ao, Co=Co), (A2, B2, C2)
+
+
+def slab_factor_cr_fused_lanes(ell: BlockELL, plan: SlabPlan,
+                               dtype=torch.float32) -> CRFactors:
+    """``slab_factor_cr_fused`` of V lanes: every factor gains the lane
+    axis ((V, h, m, m) per level, ``root_inv`` (V, m, m))."""
+    band_of_slab = _band_of_slab_lanes_fn(ell, plan, dtype)
+    A, B, C = (torch.stack(b, 1) for b in
+               zip(*(band_of_slab(s) for s in range(plan.S))))
+    levels = []
+    while A.shape[1] > 1:
+        lvl, (A, B, C) = _cr_level_lanes(A, B, C)
+        levels.append(lvl)
+    return CRFactors(levels=tuple(levels),
+                     root_inv=_inv_refined_lanes(B[:, 0]))
+
+
+def _mm_lanes(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` of V lanes, A (V, h, m, m), x (V, h, m, k): one batched
+    product, but lane by lane where h == 1, where the single-lane call
+    (a batch of one) takes another product."""
+    if A.shape[1] > 1:
+        return A @ x
+    return torch.stack([a @ b for a, b in zip(A, x)])
+
+
+def slab_solve_cr_lanes(factors: CRFactors, d: torch.Tensor) -> torch.Tensor:
+    """``slab_solve_cr`` of V lanes: d (V, S, m) -> (V, S, m)."""
+    V = d.shape[0]
+    d = d[..., None]
+    stack = []
+    for lvl in factors.levels:
+        S_l = d.shape[1]
+        if S_l % 2 == 1:
+            d = torch.cat([d, torch.zeros((V, 1) + tuple(d.shape[2:]),
+                                          dtype=d.dtype, device=d.device)], 1)
+        h = d.shape[1] // 2
+        de, do = d.reshape(V, h, 2, *d.shape[2:]).unbind(2)
+        zero = torch.zeros((V, 1) + tuple(d.shape[2:]), dtype=d.dtype,
+                           device=d.device)
+        do_prev = torch.cat([zero, do[:, :h - 1]], 1)
+        stack.append((do, S_l))
+        d = de - _mm_lanes(lvl.L, do_prev) - _mm_lanes(lvl.U, do)
+    # the root solve lane by lane, ``slab_solve_cr``'s own product
+    x = torch.stack([ri @ dl for ri, dl in zip(factors.root_inv,
+                                               d[:, 0])])[:, None]
+    for lvl, (do, S_l) in zip(reversed(factors.levels), reversed(stack)):
+        h = do.shape[1]
+        zero = torch.zeros((V, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                           device=x.device)
+        xe_next = torch.cat([x[:, 1:], zero], 1)
+        xo = _mm_lanes(lvl.invBo, do - _mm_lanes(lvl.Ao, x)
+                       - _mm_lanes(lvl.Co, xe_next))
+        x = torch.stack([x, xo], dim=2).reshape(V, 2 * h, *x.shape[2:])
+        if S_l % 2 == 1:
+            x = x[:, :S_l]
+    return x[..., 0]
+
+
 def _solver_of(factors):
     return slab_solve_cr if isinstance(factors, CRFactors) else slab_solve
 
@@ -514,20 +598,23 @@ def slab_prepare(ell: BlockELL, plan: SlabPlan,
                         factors=factor(ell_eq, plan))
 
 
-def slab_prepare_lanes(ell: BlockELL, plan: SlabPlan) -> SlabPrepared:
-    """``slab_prepare`` (Thomas) of a lane-batched BlockELL: per-lane f64
-    equilibration, the f32 factorization of every lane at once, and the
-    equilibrated matrices laid out for the kernel's lane axis
-    (``ops.ell_spmv.lane_aligned``: every lane's matrix on a 16-byte
-    boundary)."""
+def slab_prepare_lanes(ell: BlockELL, plan: SlabPlan,
+                       mode: str = "thomas") -> SlabPrepared:
+    """``slab_prepare`` of a lane-batched BlockELL: per-lane f64
+    equilibration, the f32 factorization of every lane at once (``mode``
+    'thomas' or 'cr'), and the equilibrated matrices laid out for the
+    kernel's lane axis (``ops.ell_spmv.lane_aligned``: every lane's matrix
+    on a 16-byte boundary)."""
     from gmpnp_tpu_torch.ops.ell_spmv import lane_aligned
 
     Dinv0 = block_inv(ell.diag_blocks())
     ell_eq = ell.scale_rows(Dinv0)
     ell_eq = BlockELL(ell_eq.adj, lane_aligned(ell_eq.flat),
                       ell_eq.diag_slot)
+    factor = (slab_factor_cr_fused_lanes if mode == "cr"
+              else slab_factor_fused_lanes)
     return SlabPrepared(ell_eq=ell_eq, Dinv0=Dinv0,
-                        factors=slab_factor_fused_lanes(ell_eq, plan))
+                        factors=factor(ell_eq, plan))
 
 
 def slab_apply_lanes(
@@ -548,9 +635,12 @@ def slab_apply_lanes(
     out_dtype = rhs.dtype
     b = torch.einsum("vnfg,vng->vnf", prep.Dinv0, rhs)
 
+    solver = (slab_solve_cr_lanes if isinstance(prep.factors, CRFactors)
+              else slab_solve_lanes)
+
     def solve32(r64):
         ds = plan.to_slabs_lanes(r64.to(torch.float32))
-        xs = slab_solve_lanes(prep.factors, ds)
+        xs = solver(prep.factors, ds)
         return plan.from_slabs_lanes(xs).to(out_dtype)
 
     res = gmres_lanes(prep.ell_eq.matvec, b, Minv=solve32, tol=tol,

@@ -29,9 +29,12 @@ import torch
 from gmpnp_tpu_torch.fem.assembly import BlockELL, FemSpace
 from gmpnp_tpu_torch.fem.dirichlet import DirichletBC
 from gmpnp_tpu_torch.fem.forms import WeakForm
+from gmpnp_tpu_torch.ops.ell_spmv import lane_aligned
 from gmpnp_tpu_torch.solve.linear import (
     bicgstab,
+    bicgstab_lanes,
     block_jacobi_preconditioner,
+    block_jacobi_preconditioner_lanes,
     block_tridiag_apply_cr,
     block_tridiag_factor_cr,
     block_tridiag_from_ell,
@@ -39,10 +42,15 @@ from gmpnp_tpu_torch.solve.linear import (
     block_tridiag_solve_cr,
     block_tridiag_solve_cr_lanes,
     block_tridiag_solve_thomas,
+    block_tridiag_solve_thomas_lanes,
     dense_solve,
+    dense_solve_lanes,
     gmres,
+    gmres_lanes,
     multicolor_ssor_preconditioner,
+    multicolor_ssor_preconditioner_lanes,
     tridiag_mp_solve,
+    tridiag_mp_solve_lanes,
 )
 from gmpnp_tpu_torch.solve.newton import newton_solve, newton_solve_lanes
 from gmpnp_tpu_torch.solve.slab import (
@@ -339,13 +347,6 @@ def lane_theta(theta, lane: int):
             for k, v in theta.items()}
 
 
-def _lane_bc(bc, lane: int):
-    """Lane ``lane``'s own BC out of a lane BC (values (V, N, f))."""
-    if bc.values.dim() == 3:
-        return bc._replace(values=bc.values[lane])
-    return bc
-
-
 def _assemble_lanes(space: FemSpace, form: WeakForm, cfg: LinearConfig, bc,
                     u, u_prev, theta) -> BlockELL:
     """``_assemble`` of V lanes: one lane-batched BlockELL."""
@@ -360,59 +361,91 @@ def make_linear_solver_lanes(space: FemSpace, form: WeakForm,
     """Lane counterpart of ``make_linear_solver``: (bc, u_prev, theta) of V
     lanes -> callable (u, r, active) -> (du (V, N, f), linear_iters (V,)).
 
-    Batched over the lanes: the 3D slab path (``slab_direct``, Thomas,
-    ``refresh`` 'iter' or 'step': one lane-batched Jacobian, factorization
-    and f64 GMRES over the kernel's lane axis) and the all-f64 1D CR solve
-    (``tridiag_cr``).  Every other kind runs each lane's own single-lane
-    solver, lane after lane, inside the batched Newton iteration."""
+    Every kind is one lane-batched linear solve per Newton iteration: one
+    lane-batched Jacobian, then the kind's lane solver (the slab
+    factorization, Thomas or CR, under f64 GMRES; the 1D CR, Thomas and
+    mixed-precision solves; GMRES or BiCGStab with a lane-batched
+    preconditioner, after the f64 equilibration of ``solve_dtype='f32'``;
+    the dense solve), whose Krylov lanes each stop where their single-lane
+    solve stops.  The matvec of every Krylov lane solve is one launch of
+    the block-ELL kernel's lane axis."""
     _validate_linear_config(cfg)
+    if cfg.refresh not in ("iter", "step"):
+        raise ValueError(
+            f"lane-batched steps take refresh 'iter' or 'step', got "
+            f"{cfg.refresh!r} (sweeps downgrade or resolve the others)")
     full_f32_precision()
-    if cfg.kind == "slab_direct" and cfg.slab_mode == "thomas" and (
-            cfg.refresh in ("iter", "step")):
-        plan = _slab_plan(space, cfg)
+    plan = _slab_plan(space, cfg) if cfg.kind == "slab_direct" else None
+    amg_plan = None
+    if cfg.precond == "amg" and cfg.kind in ("gmres", "bicgstab"):
+        from gmpnp_tpu_torch.solve.amg import AMGPlan
+        amg_plan = AMGPlan.build(np.asarray(space.adj), space.n_fields)
 
-        def solver(bc, u_prev, theta):
+    def krylov(ell, r, active):
+        out_dtype = r.dtype
+        if cfg.solve_dtype == "f32":
+            Dinv = block_inv(ell.diag_blocks())
+            ell = ell.scale_rows(Dinv)
+            ell = BlockELL(ell.adj, ell.flat.to(torch.float32),
+                           ell.diag_slot)
+            r = torch.einsum("vnfg,vng->vnf", Dinv, r).to(torch.float32)
+        ell = BlockELL(ell.adj, lane_aligned(ell.flat), ell.diag_slot)
+        if cfg.precond == "ssor":
+            pc = multicolor_ssor_preconditioner_lanes(
+                ell, space.colors, sweeps=cfg.ssor_sweeps)
+        elif cfg.precond == "amg":
+            from gmpnp_tpu_torch.solve.amg import amg_preconditioner_lanes
+            pc = amg_preconditioner_lanes(ell, amg_plan)
+        else:
+            pc = block_jacobi_preconditioner_lanes(ell)
+        if cfg.kind == "gmres":
+            res = gmres_lanes(ell.matvec, r, Minv=pc, tol=cfg.tol,
+                              atol=cfg.atol, restart=cfg.restart,
+                              maxiter=cfg.maxiter, active=active)
+        else:
+            res = bicgstab_lanes(ell.matvec, r, Minv=pc, tol=cfg.tol,
+                                 atol=cfg.atol, maxiter=cfg.maxiter,
+                                 active=active)
+        return res.x.to(out_dtype), res.iters
+
+    def solver(bc, u_prev, theta):
+        def assemble(u):
+            return _assemble_lanes(space, form, cfg, bc, u, u_prev, theta)
+
+        if cfg.kind == "slab_direct":
             def prepare(u):
-                return slab_prepare_lanes(_assemble_lanes(
-                    space, form, cfg, bc, u, u_prev, theta), plan)
+                return slab_prepare_lanes(assemble(u), plan,
+                                          mode=cfg.slab_mode)
 
             frozen = (prepare(bc.project(u_prev)) if cfg.refresh == "step"
                       else None)
 
-            def lin(u, r, active):
+            def lin_slab(u, r, active):
                 prep = frozen if frozen is not None else prepare(u)
                 res = slab_apply_lanes(prep, r, plan, tol=cfg.tol,
                                        max_refine=cfg.max_refine,
                                        active=active)
                 return res.x, res.iters
 
-            return lin
-
-        return solver
-    if (cfg.kind == "tridiag_cr" and cfg.solve_dtype == "f64"
-            and cfg.refresh in ("iter", "step")):
-        def solver(bc, u_prev, theta):
-            def lin(u, r, active):
-                ell = _assemble_lanes(space, form, cfg, bc, u, u_prev, theta)
-                x = block_tridiag_solve_cr_lanes(
-                    *block_tridiag_from_ell_lanes(ell), r)
-                return x, np.zeros(r.shape[0], np.int64)
-            return lin
-
-        return solver
-
-    single = make_linear_solver(space, form, cfg)
-
-    def solver(bc, u_prev, theta):
-        lins = [single(_lane_bc(bc, v), u_prev[v], lane_theta(theta, v))
-                for v in range(u_prev.shape[0])]
+            return lin_slab
 
         def lin(u, r, active):
-            du = torch.zeros_like(r)
-            its = np.zeros(r.shape[0], np.int64)
-            for v in np.nonzero(active)[0]:
-                du[v], its[v] = lins[v](u[v], r[v])
-            return du, its
+            ell = assemble(u)
+            none = np.zeros(r.shape[0], np.int64)
+            if cfg.kind == "tridiag_cr":
+                if cfg.solve_dtype == "f32":
+                    res = tridiag_mp_solve_lanes(
+                        ell, r, tol=cfg.tol, max_refine=cfg.max_refine,
+                        active=active)
+                    return res.x, res.iters
+                return block_tridiag_solve_cr_lanes(
+                    *block_tridiag_from_ell_lanes(ell), r), none
+            if cfg.kind == "tridiag_thomas":
+                return block_tridiag_solve_thomas_lanes(
+                    *block_tridiag_from_ell_lanes(ell), r), none
+            if cfg.kind == "dense":
+                return dense_solve_lanes(ell, r), none
+            return krylov(ell, r, active)
 
         return lin
 

@@ -54,9 +54,17 @@ def test_mesh_space_and_slab_plan_bit_identical(L, R, kw):
         for a, b in zip(getattr(ts, name), getattr(js, name)):
             _assert_same(a, b, name)
     assert [m for m, _ in ts.facet_tabs] == [m for m, _ in js.facet_tabs]
+    from gmpnp_tpu.fem.assembly import _sorted_segment_tables
     for (m, tt), (_, jt) in zip(ts.facet_tabs, js.facet_tabs):
-        assert tt.keys() == jt.keys()
-        for k in tt:
+        # the port's one extra table: the facet residual rows' sorted
+        # segments (the reference scatter-adds them), made by the
+        # reference's own table builder from the same nodes
+        assert tt.keys() - {"res_tables"} == jt.keys()
+        want = _sorted_segment_tables(np.asarray(jt["nodes"]).reshape(-1),
+                                      jm.num_vertices)
+        for a, b in zip(tt["res_tables"], want):
+            _assert_same(a, b, f"facet {m} res_tables")
+        for k in jt:
             if k == "jac_tables":
                 for a, b in zip(tt[k], jt[k]):
                     _assert_same(a, b, f"facet {m} {k}")

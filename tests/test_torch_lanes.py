@@ -14,7 +14,17 @@ Tolerances, each with its reason:
 - the slab factor and solve over lanes: the f32 banded solve within 1e-5
   relative of the single lane's (f32 products batched otherwise), and the
   f64 GMRES solutions within 1e-9 relative (the linear tolerance 1e-12 on
-  a system of condition ~1e3).
+  a system of condition ~1e3); the slab's cyclic reduction over lanes:
+  factors and solve exactly equal (its level products are batched as the
+  single lane's are, its root products taken lane by lane);
+- the 1D block-Thomas solve over lanes: 1e-12 relative (its small
+  products batched); ``tridiag_mp_solve`` over lanes: 1e-13 relative and
+  the same GMRES count per lane;
+- the preconditioners over lanes (block-Jacobi, multicolor SSOR, AMG: the
+  Galerkin levels, the V-cycle) and BiCGStab, GMRES and the dense solve
+  over lanes: exactly equal per lane, iteration counts included (each lane
+  takes its single-lane arithmetic; the Krylov reductions lane by lane),
+  but for the batched dense LU (1e-12 relative).
 """
 
 import numpy as np
@@ -301,3 +311,174 @@ def test_edl_lane_theta_per_lane_fluxes():
         assert torch.equal(J[v], prog.space.jacobian(prog.form, u0, u0,
                                                      ths[v]).flat)
     assert not torch.equal(r[0], r[1])
+
+
+def test_thomas_over_lanes_matches_single_lanes():
+    lo, di, up, rhs = _tridiag_lanes(3, 37, 7)
+    x = linear.block_tridiag_solve_thomas_lanes(lo, di, up, rhs)
+    for v in range(3):
+        want = linear.block_tridiag_solve_thomas(lo[v], di[v], up[v], rhs[v])
+        assert _rel(x[v], want) <= 1e-12
+
+
+def test_tridiag_mp_solve_over_lanes_matches_single_lanes():
+    """Three EDL lanes at three voltages (the sweep's Dirichlet blend) at
+    the cold start: each lane's f32 CR preconditioned GMRES as the lane
+    alone, its iteration count included; a lane left out by ``active``
+    takes no iteration."""
+    prog = edl_1d.build(edl_1d.EDL1DConfig(L_n=1e-6), device="cpu")
+    left = np.unique(prog.mesh.facets[prog.mesh.facet_markers
+                                      == 1].reshape(-1))
+    u0 = prog.initial_state()
+    ths = []
+    for volt in (-0.5, -1.0, -2.0):
+        th = prog._theta_of_carry((u0, 0.0), 0)
+        th["voltage"] = volt
+        ths.append(th)
+    theta = stack_lane_theta(ths, "cpu")
+    bc = prog.bc.arith().set_value_arith(left, edl_1d.P, theta["voltage"])
+    U = bc.project(u0.expand(3, *u0.shape))
+    Up = u0.expand(3, *u0.shape)
+    ell = bc.apply_to_jacobian(prog.space.jacobian_lanes(prog.form, U, Up,
+                                                         theta))
+    r = bc.apply_to_residual(prog.space.residual_lanes(prog.form, U, Up,
+                                                       theta), U)
+    active = np.array([True, False, True])
+    res = linear.tridiag_mp_solve_lanes(ell, r, tol=1e-10, active=active)
+    assert res.iters[1] == 0 and float(res.x[1].abs().max()) == 0.0
+    for v in (0, 2):
+        one = linear.tridiag_mp_solve(BlockELL(ell.adj, ell.flat[v],
+                                               ell.diag_slot), r[v],
+                                      tol=1e-10)
+        assert res.iters[v] == one.iters > 0
+        assert res.converged[v] and one.converged
+        assert _rel(res.x[v], one.x) <= 1e-13
+
+
+def _pc_pairs(prog, ell):
+    """(name, lane preconditioner, single-lane preconditioners)."""
+    from gmpnp_tpu_torch.solve import amg
+
+    one = [BlockELL(ell.adj, ell.flat[v], ell.diag_slot)
+           for v in range(ell.lanes)]
+    colors = prog.space.colors
+    plan = amg.AMGPlan.build(np.asarray(prog.space.adj), prog.space.n_fields)
+    return one, [
+        ("block_jacobi", linear.block_jacobi_preconditioner_lanes(ell),
+         [linear.block_jacobi_preconditioner(o) for o in one]),
+        ("ssor", linear.multicolor_ssor_preconditioner_lanes(ell, colors,
+                                                             sweeps=2),
+         [linear.multicolor_ssor_preconditioner(o, colors, sweeps=2)
+          for o in one]),
+        ("amg", amg.amg_preconditioner_lanes(ell, plan),
+         [amg.amg_preconditioner(o, plan) for o in one]),
+    ]
+
+
+def test_preconditioners_and_krylov_over_lanes_match_single_lanes(
+        pore_lanes):
+    """Each preconditioner's apply, and GMRES and BiCGStab under it, over
+    two pore lanes: exactly each lane's single-lane result, iteration
+    counts included; BiCGStab reads one (V,) predicate per iteration."""
+    prog, bc, U, theta, ell, r = pore_lanes
+    one, pcs = _pc_pairs(prog, ell)
+    for name, pl, ps in pcs:
+        z = pl(r)
+        for v in range(2):
+            assert torch.equal(z[v], ps[v](r[v])), name
+        r0 = sync.READS
+        bi = linear.bicgstab_lanes(ell.matvec, r, Minv=pl, tol=1e-8,
+                                   maxiter=300)
+        bi_reads = sync.READS - r0
+        gm = linear.gmres_lanes(ell.matvec, r, Minv=pl, tol=1e-8,
+                                maxiter=300)
+        single_reads = []
+        for v in range(2):
+            for res, fn in ((bi, linear.bicgstab), (gm, linear.gmres)):
+                r0 = sync.READS
+                want = fn(one[v].matvec, r[v], Minv=ps[v], tol=1e-8,
+                          maxiter=300)
+                if fn is linear.bicgstab:
+                    single_reads.append(sync.READS - r0)
+                assert res.iters[v] == want.iters, (name, fn.__name__)
+                assert res.converged[v] == want.converged
+                assert torch.equal(res.x[v], want.x), (name, fn.__name__)
+        # the reads of the lane that iterates longest alone
+        assert bi_reads == single_reads[int(np.argmax(bi.iters))]
+
+
+def test_bicgstab_over_lanes_freezes_stopped_lanes():
+    """Lanes that stop after different iterations, at maxiter or not at
+    all (``active``): each lane's x and count are its single-lane solve's
+    (small dense systems, as ``gmres_lanes``' test)."""
+    rng = np.random.default_rng(9)
+    V, n = 4, 40
+    A = torch.as_tensor(rng.normal(size=(V, n, n)) * 0.2
+                        + np.eye(n)[None] * np.array([2, 3, 5, 1.1])[:, None,
+                                                                       None])
+    b = torch.as_tensor(rng.normal(size=(V, n)))
+    mv = lambda x: torch.einsum("vij,vj->vi", A, x)
+    active = np.array([True, True, True, False])
+    res = linear.bicgstab_lanes(mv, b, tol=1e-10, maxiter=12, active=active)
+    counts = []
+    for v in range(3):
+        one = linear.bicgstab(lambda x: A[v] @ x, b[v], tol=1e-10,
+                              maxiter=12)
+        counts.append(one.iters)
+        assert res.iters[v] == one.iters
+        assert res.converged[v] == one.converged
+        assert _rel(res.x[v], one.x) <= 1e-12
+    assert len(set(counts)) > 1 and max(counts) == 12
+    assert res.iters[3] == 0 and float(res.x[3].abs().max()) == 0.0
+    assert not res.converged[3]
+
+
+def test_amg_levels_over_lanes_match_single_lanes(pore_lanes):
+    """The Galerkin coarse operators, block-diagonal inverses and coarsest
+    LU of every lane, from one plan and tables shared by the lanes."""
+    from gmpnp_tpu_torch.solve import amg
+
+    prog, bc, U, theta, ell, r = pore_lanes
+    plan = amg.AMGPlan.build(np.asarray(prog.space.adj), prog.space.n_fields)
+    vals = amg.amg_prepare_lanes(ell, plan)
+    for v in range(2):
+        one = amg.amg_prepare(BlockELL(ell.adj, ell.flat[v], ell.diag_slot),
+                              plan)
+        for lv, lo in zip(vals.levels, one.levels):
+            assert torch.equal(lv.ell.flat[v], lo.ell.flat)
+            assert torch.equal(lv.Dinv[v], lo.Dinv)
+        assert torch.equal(vals.coarsest_lu[v][0], one.coarsest_lu[0])
+        assert torch.equal(vals.coarsest_lu[v][1], one.coarsest_lu[1])
+
+
+def test_slab_cr_over_lanes_matches_single_lanes(pore_lanes):
+    prog, bc, U, theta, ell, r = pore_lanes
+    plan = slab.SlabPlan.build(
+        np.asarray(prog.space.adj), np.asarray(prog.space.points)[:, -1],
+        prog.space.n_fields, np.asarray(prog.space.diag_slot))
+    prep = slab.slab_prepare_lanes(ell, plan, mode="cr")
+    res = slab.slab_apply_lanes(prep, r, plan, tol=1e-12, max_refine=40)
+    d = plan.to_slabs_lanes(r.to(torch.float32))
+    z = slab.slab_solve_cr_lanes(prep.factors, d)
+    for v in range(2):
+        p1 = slab.slab_prepare(BlockELL(ell.adj, ell.flat[v], ell.diag_slot),
+                               plan, mode="cr")
+        for lv, lo in zip(prep.factors.levels, p1.factors.levels):
+            for a, b in zip(lv, lo):
+                assert torch.equal(a[v], b)
+        assert torch.equal(prep.factors.root_inv[v], p1.factors.root_inv)
+        assert torch.equal(z[v], slab.slab_solve_cr(
+            p1.factors, plan.to_slabs(r[v].to(torch.float32))))
+        one = slab.slab_apply(p1, r[v], plan, tol=1e-12, max_refine=40)
+        assert res.iters[v] == one.iters
+        assert torch.equal(res.x[v], one.x)
+
+
+def test_dense_over_lanes_matches_single_lanes(pore_lanes):
+    prog, bc, U, theta, ell, r = pore_lanes
+    x = linear.dense_solve_lanes(ell, r)
+    dense = ell.to_dense()
+    for v in range(2):
+        one = BlockELL(ell.adj, ell.flat[v], ell.diag_slot)
+        assert torch.equal(dense[v], one.to_dense())
+        assert _rel(x[v], linear.dense_solve(one, r[v])) <= 1e-12

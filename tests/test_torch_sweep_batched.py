@@ -22,7 +22,11 @@ Tolerances, each with its reason:
   products round differently) or exactly equal where the arithmetic is
   elementwise;
 - host reads per Newton iteration: equal for one lane and for three
-  copies of it (the batched loop reads (V,) norms once, never per lane).
+  copies of it (the batched loop reads (V,) norms once, never per lane),
+  under the Krylov kinds too (one (V,) read per Krylov iteration);
+- the batched direct kinds (1D block-Thomas, the slab's cyclic reduction,
+  the dense solve) and ``tridiag_mp_solve`` over lanes against chunk=0:
+  1e-10 with the same Newton counts.
 """
 
 import dataclasses
@@ -172,10 +176,13 @@ def test_carried_edl_keeps_lanes_one_at_a_time(monkeypatch):
 
 
 def test_batched_lanes_of_a_kind_without_lane_solver():
-    """A linear kind with no lane version (here the EDL's mixed-precision
-    ``tridiag_mp_solve``) still runs batched: each Newton iteration's
-    linear solve takes every active lane's own single-lane solver, and the
-    lanes equal their chunk=0 runs."""
+    """The EDL's mixed-precision ``tridiag_mp_solve`` (a kind that once ran
+    each lane's own single-lane solver inside the batched Newton) runs as
+    one lane-batched solve, ``solve.linear.tridiag_mp_solve_lanes``: the
+    f32 CR factor and apply of every lane at once under GMRES over the
+    lanes.  On the CPU each lane takes its single-lane arithmetic, so the
+    lanes equal their chunk=0 runs to the last digits, Krylov counts
+    included."""
     cfg = edl_1d.EDL1DConfig(L_n=1e-6)
     cfg = dataclasses.replace(cfg, linear=dataclasses.replace(
         cfg.linear, solve_dtype="f32", tol=1e-10))
@@ -188,6 +195,74 @@ def test_batched_lanes_of_a_kind_without_lane_solver():
     np.testing.assert_array_equal(stats.newton_iters, st0.newton_iters)
     np.testing.assert_array_equal(stats.linear_iters, st0.linear_iters)
     assert stats.converged.all() and (stats.linear_iters > 0).all()
+
+
+def _with_linear(cfg, **kw):
+    return dataclasses.replace(cfg, linear=dataclasses.replace(cfg.linear,
+                                                               **kw))
+
+
+#: direct kinds of the batched sweeps: (model, LinearConfig fields, lanes)
+DIRECT_KINDS = {
+    "edl tridiag_thomas": ("edl", dict(kind="tridiag_thomas"),
+                           EDL_VOLTS[:2]),
+    "pore slab cr": ("pore", dict(slab_mode="cr", refresh="step"),
+                     [-0.5, -1.0]),
+    "pore dense": ("pore", dict(kind="dense"), [-0.5, -1.0]),
+}
+
+
+@pytest.mark.parametrize("kind", list(DIRECT_KINDS))
+def test_batched_direct_kinds_match_chunk0(kind):
+    """The 1D block-Thomas solve, the slab solver's cyclic reduction and
+    the dense solve over lanes, one cold-start step each: every lane
+    within 1e-10 of its chunk=0 run with the same Newton counts and flags
+    (f64 direct solves; on the CPU each lane takes its single-lane
+    arithmetic but for the batched small products of block-Thomas and the
+    batched dense LU)."""
+    model, kw, volts = DIRECT_KINDS[kind]
+    if model == "edl":
+        cfg, run = _with_linear(edl_1d.EDL1DConfig(L_n=1e-6), **kw), \
+            sweep.run_edl_voltage_sweep
+    else:
+        cfg, run = _with_linear(pore_3d.Pore3DConfig(
+            mesh_resolution=(2, 8)), **kw), sweep.run_pore_voltage_sweep
+    u, st = run(cfg, volts, n_steps=1, chunk=len(volts), device="cpu")
+    u0, st0 = run(cfg, volts, n_steps=1, chunk=0, device="cpu")
+    np.testing.assert_allclose(u.numpy(), u0.numpy(), rtol=1e-10,
+                               atol=1e-10)
+    np.testing.assert_array_equal(st.newton_iters, st0.newton_iters)
+    np.testing.assert_array_equal(st.converged, st0.converged)
+    assert st.converged.all()
+
+
+@pytest.mark.parametrize("kind", ["edl tridiag_mp_solve",
+                                  "pore gmres amg"])
+def test_host_reads_of_batched_krylov_kinds_do_not_grow_with_lanes(kind):
+    """Three copies of one lane take the host reads of the lane alone
+    under the Krylov kinds too: one (V,) read per Krylov iteration (the
+    Hessenberg columns of GMRES) and per Newton iteration, never one per
+    lane (BiCGStab's one predicate read per iteration: test_torch_lanes.py)."""
+    from gmpnp_tpu_torch import sync
+
+    if kind.startswith("edl"):
+        cfg = _with_linear(edl_1d.EDL1DConfig(L_n=1e-6), solve_dtype="f32")
+        run = sweep.run_edl_voltage_sweep
+    else:
+        cfg = _with_linear(pore_3d.Pore3DConfig(mesh_resolution=(2, 8)),
+                           kind="gmres", precond="amg", tol=1e-6,
+                           maxiter=300)
+        run = sweep.run_pore_voltage_sweep
+    reads = {}
+    for V in (1, 3):
+        r0 = sync.READS
+        u, stats = run(cfg, [-1.0] * V, n_steps=1, chunk=V, device="cpu")
+        reads[V] = sync.READS - r0
+        assert (stats.newton_iters == stats.newton_iters[0]).all()
+        assert (stats.linear_iters == stats.linear_iters[0]).all()
+        assert stats.converged.all() and (stats.linear_iters > 0).all()
+    assert reads[3] == reads[1]
+    assert reads[1] > int(stats.linear_iters[0].sum())
 
 
 def test_run_lanes_modes():
