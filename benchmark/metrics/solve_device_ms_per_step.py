@@ -1,0 +1,16 @@
+"""Device ms per lane-step of the operations launched inside the
+program's ``linear.solve`` spans and their ``linear.krylov`` children
+(the solves with a factor or preconditioner, and their Krylov
+iterations), in the episode that ``harness/program_trace.py`` traces:
+each operation is owned by the innermost span open when its CUDA call
+launched it."""
+
+from benchmark.harness.program_trace import SOLVE
+
+
+def read(run):
+    prog = run.get("program")
+    if not prog or not prog["lane_steps"]:
+        return None
+    by = prog["device_by_span"]
+    return sum(by.get(n, 0.0) for n in SOLVE) * 1e3 / prog["lane_steps"]

@@ -11,6 +11,10 @@ Sparse storage is block-ELL ("padded CSR"): per mesh vertex a fixed-width,
 sorted neighbor list (padded with self-loops) and per neighbor an
 (n_fields x n_fields) dense block.  Every shape is static, and the matvec is
 one pass of the hand-written kernel in ``ops.ell_spmv``.
+
+``FemSpace.residual`` and ``residual_lanes`` run in ``assembly.residual``
+spans, ``jacobian`` and ``jacobian_lanes`` in ``assembly.jacobian`` spans
+(``utils.profiling``; a lane call holds its vmapped single-lane one).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from gmpnp_tpu_torch.mesh.core import (
     vertex_adjacency,
 )
 from gmpnp_tpu_torch.ops.segment_sum import segment_sum_op
+from gmpnp_tpu_torch.utils.profiling import span
 
 
 class BlockELL(NamedTuple):
@@ -423,6 +428,7 @@ class FemSpace:
 
     # -- global assembly -----------------------------------------------------
 
+    @span("assembly.residual")
     def residual(self, form: WeakForm, u, u_prev, theta,
                  aux=None) -> torch.Tensor:
         """Assembled residual (N, fields); ``aux`` (N, n_aux) when the form
@@ -462,6 +468,7 @@ class FemSpace:
 
     # -- lane-batched assembly (sweep lanes) ---------------------------------
 
+    @span("assembly.residual")
     def residual_lanes(self, form: WeakForm, u, u_prev, theta,
                        aux=None) -> torch.Tensor:
         """``residual`` of V lanes at once: u, u_prev (V, N, fields),
@@ -476,6 +483,7 @@ class FemSpace:
         return vmap(one, in_dims=(0, 0, 0, None if aux is None else 0))(
             u, u_prev, lane, aux)
 
+    @span("assembly.jacobian")
     def jacobian_lanes(self, form: WeakForm, u, u_prev, theta,
                        aux=None, dtype=None) -> BlockELL:
         """``jacobian`` of V lanes at once -> BlockELL with flat (V, N, f,
@@ -493,6 +501,7 @@ class FemSpace:
         return BlockELL(adj=self.dev["adj"], flat=flat,
                         diag_slot=self.dev["diag_slot"])
 
+    @span("assembly.jacobian")
     def jacobian(self, form: WeakForm, u, u_prev, theta,
                  aux=None, dtype=None) -> BlockELL:
         """Assembled Jacobian dF/du as BlockELL (aux never differentiated).

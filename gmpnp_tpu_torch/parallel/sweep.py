@@ -24,6 +24,10 @@ Under ``chunk != 0`` a carried pore factorization is downgraded to
 its lanes one at a time (the reference would raise; ROADMAP queue 3 item
 8).  ``devices=`` runs the lanes one per device instead
 (``run_lanes_on_devices``).
+
+Spans (``utils.profiling``): ``sweep.build`` around a sweep's program
+build and refresh resolution, ``sweep.batch`` (attribute ``lanes``)
+around each transient of a batch of lanes, or of one lane.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from gmpnp_tpu_torch.solve.timeloop import (
     run_transient_lanes,
     stack_lane_theta,
 )
+from gmpnp_tpu_torch.utils.profiling import span
 
 
 def _auto_chunk(lanes: int, num_vertices: int) -> int:
@@ -173,6 +178,7 @@ def _lane_runner(prog, step_args, lin, n, carried, extra0, bc_of_theta,
         step = make_implicit_step(space, form, newton, lin,
                                   bc_of_theta=bc_of_theta)
 
+    @span("sweep.batch", lanes=1)
     def single(voltage):
         theta_of = _theta_with_voltage(prog._theta_of_carry, voltage)
         u0 = prog.initial_state()
@@ -215,11 +221,12 @@ def _batched_runner(prog, step_args, lin, n, extra0, bc_of_theta,
                 return extras
             return [update_carry(e, u[v], i) for v, e in enumerate(extras)]
 
-        u0 = prog.initial_state()
-        u0 = u0.expand((V,) + tuple(u0.shape)).clone()
-        _, ys = run_transient_lanes(step, (u0, [extra0] * V), n,
-                                    update_carry=update,
-                                    theta_of_carry=theta_of)
+        with span("sweep.batch", lanes=V):
+            u0 = prog.initial_state()
+            u0 = u0.expand((V,) + tuple(u0.shape)).clone()
+            _, ys = run_transient_lanes(step, (u0, [extra0] * V), n,
+                                        update_carry=update,
+                                        theta_of_carry=theta_of)
         return ys
 
     return batched
@@ -246,11 +253,7 @@ def run_edl_voltage_sweep(
     devices = None if devices is None else [torch.device(d) for d in devices]
     lane_per_device = devices is not None and len(devices) > 1
     home = devices[0] if devices else torch.device(device)
-    prog = edl_1d.build(cfg, device=home)
-    n = prog.tot_num_steps if n_steps is None else n_steps
     P = edl_1d.P
-    left = np.unique(
-        prog.mesh.facets[prog.mesh.facet_markers == 1].reshape(-1))
     newton = _sweep_newton(cfg.newton)
     chf0 = 0.001 if cfg.H_OHP is not None else 0.0
 
@@ -260,10 +263,16 @@ def run_edl_voltage_sweep(
         return lambda theta: p.bc.arith().set_value_arith(
             left, P, theta["voltage"])
 
-    lin = _resolve_refresh(
-        cfg.linear, prog.space, prog.form, newton, bc_of(prog),
-        prog.initial_state(),
-        _theta_with_voltage(prog._theta_of_carry, float(voltages[0])), info)
+    with span("sweep.build"):
+        prog = edl_1d.build(cfg, device=home)
+        n = prog.tot_num_steps if n_steps is None else n_steps
+        left = np.unique(
+            prog.mesh.facets[prog.mesh.facet_markers == 1].reshape(-1))
+        lin = _resolve_refresh(
+            cfg.linear, prog.space, prog.form, newton, bc_of(prog),
+            prog.initial_state(),
+            _theta_with_voltage(prog._theta_of_carry, float(voltages[0])),
+            info)
     carried = lin.kind == "tridiag_cr" and lin.refresh == "carried"
     if chunk is None:
         chunk = _auto_chunk(len(voltages), prog.space.num_vertices)
@@ -310,11 +319,7 @@ def run_pore_voltage_sweep(
     devices = None if devices is None else [torch.device(d) for d in devices]
     lane_per_device = devices is not None and len(devices) > 1
     home = devices[0] if devices else torch.device(device)
-    prog = pore_3d.build(cfg, device=home)
-    n = prog.num_steps if n_steps is None else n_steps
     ns = len(cfg.species)
-    s2 = np.unique(
-        prog.mesh.facets[prog.mesh.facet_markers == pore_3d.S2].reshape(-1))
     newton = _sweep_newton(cfg.newton)
 
     def bc_of(p):
@@ -325,12 +330,18 @@ def run_pore_voltage_sweep(
             return bc.set_value_arith(s2, ns, theta["voltage"])
         return bc_of_theta
 
+    with span("sweep.build"):
+        prog = pore_3d.build(cfg, device=home)
+        n = prog.num_steps if n_steps is None else n_steps
+        s2 = np.unique(prog.mesh.facets[
+            prog.mesh.facet_markers == pore_3d.S2].reshape(-1))
+        lin = _resolve_refresh(
+            cfg.linear, prog.space, prog.form, newton, bc_of(prog),
+            prog.initial_state(),
+            _theta_with_voltage(prog._theta_of_carry, float(voltages[0])),
+            info)
     if chunk is None:
         chunk = _auto_chunk(len(voltages), prog.space.num_vertices)
-    lin = _resolve_refresh(
-        cfg.linear, prog.space, prog.form, newton, bc_of(prog),
-        prog.initial_state(),
-        _theta_with_voltage(prog._theta_of_carry, float(voltages[0])), info)
     carried = lin.kind == "slab_direct" and lin.refresh == "carried"
     if carried and chunk != 0 and not lane_per_device:
         # the reference's batched lanes would execute both branches of the

@@ -31,7 +31,8 @@ Used as ``LinearConfig(kind='gmres'|'bicgstab', precond='amg')``.  The
 lane-batched BlockELL): one plan for every lane (the aggregation depends
 only on the mesh), its segment tables built once per matrix and shared by
 the lanes, every level's matvecs and smoothing one batched call over the
-lanes, its segment sums and the coarsest solve one call per lane.
+lanes, its segment sums and the coarsest solve one call per lane.  The
+preconditioner builds run in ``linear.factor`` spans (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ import torch
 
 from gmpnp_tpu_torch.fem.assembly import BlockELL
 from gmpnp_tpu_torch.solve.smallblock import block_inv
+from gmpnp_tpu_torch.utils.profiling import span
 
 
 def aggregate_vertices(adj: np.ndarray) -> Tuple[np.ndarray, int]:
@@ -334,6 +336,7 @@ def amg_vcycle_lanes(vals: AMGValues, plan: AMGPlan, r: torch.Tensor,
     return cyc(0, r)
 
 
+@span("linear.factor")
 def amg_preconditioner_lanes(ell: BlockELL, plan: AMGPlan,
                              omega: float = 0.67, pre: int = 1,
                              post: int = 1
@@ -349,6 +352,7 @@ def amg_preconditioner_lanes(ell: BlockELL, plan: AMGPlan,
     return apply
 
 
+@span("linear.factor")
 def amg_preconditioner(ell: BlockELL, plan: AMGPlan,
                        omega: float = 0.67, pre: int = 1, post: int = 1
                        ) -> Callable[[torch.Tensor], torch.Tensor]:

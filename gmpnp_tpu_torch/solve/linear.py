@@ -13,6 +13,10 @@
   SSOR (colors from ``greedy_vertex_coloring``) and aggregation AMG
   (solve.amg).
 - ``dense_solve`` for tests and small systems.
+
+Spans (``utils.profiling``): factorizations and preconditioner builds run
+in ``linear.factor``, the direct solves and applies in ``linear.solve``,
+GMRES and BiCGStab in ``linear.krylov``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from gmpnp_tpu_torch.fem.assembly import BlockELL
 from gmpnp_tpu_torch.solve.smallblock import (
     block_inv, block_solve, range_clamp, triangular_solve_upper)
 from gmpnp_tpu_torch.sync import to_host
+from gmpnp_tpu_torch.utils.profiling import span
 
 
 # ---------------------------------------------------------------------------
@@ -61,6 +66,7 @@ def _mv(A, x):
     return torch.einsum("nij,nj->ni", A, x)
 
 
+@span("linear.solve")
 def block_tridiag_solve_thomas(lower, diag, upper, rhs):
     """Sequential block-Thomas algorithm (exact; the oracle path): the
     reference's forward and reverse ``lax.scan`` as Python loops.
@@ -100,6 +106,7 @@ def _identity_pad(A, B, C, n_pad):
     return (torch.cat([A, zed]), torch.cat([B, eye]), torch.cat([C, zed]))
 
 
+@span("linear.solve")
 def block_tridiag_solve_cr(lower, diag, upper, rhs):
     """Block cyclic reduction: exact direct solve in log2(N) batched
     levels.  Every level product is range-clamped (the reference's guard,
@@ -171,6 +178,7 @@ class CRFactors(NamedTuple):
     Binv_top: torch.Tensor   # (f, f) inverse of the final 1x1-block system
 
 
+@span("linear.factor")
 def block_tridiag_factor_cr(lower, diag, upper) -> CRFactors:
     """Factorization half of block cyclic reduction: everything that
     depends only on the matrix, so one factorization serves many
@@ -200,6 +208,7 @@ def block_tridiag_factor_cr(lower, diag, upper) -> CRFactors:
     return CRFactors(levels=tuple(levels), Binv_top=block_inv(B[0]))
 
 
+@span("linear.solve")
 def block_tridiag_apply_cr(factors: CRFactors, rhs: torch.Tensor):
     """Solve with a prepared CR factorization.  rhs: (N, f) in the
     factorization's dtype (padded rows solve to 0 exactly)."""
@@ -226,6 +235,7 @@ def block_tridiag_apply_cr(factors: CRFactors, rhs: torch.Tensor):
     return x[:N]
 
 
+@span("linear.solve")
 def tridiag_mp_solve(ell: BlockELL, rhs: torch.Tensor,
                      tol: float = 1.0e-8, max_refine: int = 40):
     """Mixed-precision 1D direct solve (``LinearConfig(kind='tridiag_cr',
@@ -296,6 +306,7 @@ def _identity_pad_lanes(A, B, C, n_pad):
             torch.cat([C, zed], 1))
 
 
+@span("linear.solve")
 def block_tridiag_solve_thomas_lanes(lower, diag, upper, rhs):
     """``block_tridiag_solve_thomas`` over lanes: (V, N, f, f) bands, rhs
     (V, N, f) -> x (V, N, f); each row's steps one batched call over the
@@ -318,6 +329,7 @@ def block_tridiag_solve_thomas_lanes(lower, diag, upper, rhs):
     return torch.stack(xs, 1)[..., 0]
 
 
+@span("linear.solve")
 def block_tridiag_solve_cr_lanes(lower, diag, upper, rhs):
     """``block_tridiag_solve_cr`` over lanes: (V, N, f, f) bands, rhs
     (V, N, f) -> x (V, N, f)."""
@@ -366,6 +378,7 @@ def block_tridiag_solve_cr_lanes(lower, diag, upper, rhs):
     return x[:, :N]
 
 
+@span("linear.factor")
 def block_tridiag_factor_cr_lanes(lower, diag, upper) -> CRFactors:
     """``block_tridiag_factor_cr`` over lanes: every factor gains the lane
     axis ((V, h, f, f) per level, ``Binv_top`` (V, f, f))."""
@@ -391,6 +404,7 @@ def block_tridiag_factor_cr_lanes(lower, diag, upper) -> CRFactors:
     return CRFactors(levels=tuple(levels), Binv_top=block_inv(B[:, 0]))
 
 
+@span("linear.solve")
 def block_tridiag_apply_cr_lanes(factors: CRFactors, rhs: torch.Tensor):
     """``block_tridiag_apply_cr`` over lanes: rhs (V, N, f)."""
     V, N, f = rhs.shape
@@ -421,6 +435,7 @@ def block_tridiag_apply_cr_lanes(factors: CRFactors, rhs: torch.Tensor):
     return x[:, :N]
 
 
+@span("linear.solve")
 def tridiag_mp_solve_lanes(ell: BlockELL, rhs: torch.Tensor,
                            tol: float = 1.0e-8, max_refine: int = 40,
                            active: Optional[np.ndarray] = None):
@@ -456,6 +471,7 @@ def tridiag_mp_solve_lanes(ell: BlockELL, rhs: torch.Tensor,
 # Preconditioners
 # ---------------------------------------------------------------------------
 
+@span("linear.factor")
 def block_jacobi_preconditioner(ell: BlockELL) -> Callable[[torch.Tensor],
                                                             torch.Tensor]:
     """M^{-1} z with M = block diagonal of the matrix; z, out: (N, f)."""
@@ -467,6 +483,7 @@ def block_jacobi_preconditioner(ell: BlockELL) -> Callable[[torch.Tensor],
     return apply
 
 
+@span("linear.factor")
 def block_jacobi_preconditioner_lanes(ell: BlockELL) -> Callable[
         [torch.Tensor], torch.Tensor]:
     """``block_jacobi_preconditioner`` of a lane-batched BlockELL; z, out:
@@ -529,6 +546,7 @@ def _diag_mask(ell: BlockELL) -> torch.Tensor:
     return dmask
 
 
+@span("linear.factor")
 def multicolor_ssor_preconditioner(
     ell: BlockELL,
     colors: "np.ndarray",
@@ -587,6 +605,7 @@ def multicolor_ssor_preconditioner(
     return apply
 
 
+@span("linear.factor")
 def multicolor_ssor_preconditioner_lanes(
     ell: BlockELL,
     colors: "np.ndarray",
@@ -663,6 +682,7 @@ def _norm(v):
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
 
+@span("linear.krylov")
 def gmres(
     matvec: Callable,
     b: torch.Tensor,
@@ -796,6 +816,7 @@ def _scalar_squares(a: np.ndarray) -> np.ndarray:
     return np.array([v ** 2 for v in a], dtype=a.dtype)
 
 
+@span("linear.krylov")
 def gmres_lanes(
     matvec: Callable,
     b: torch.Tensor,
@@ -930,6 +951,7 @@ def gmres_lanes(
                         total_it, conv)
 
 
+@span("linear.krylov")
 def bicgstab(
     matvec: Callable,
     b: torch.Tensor,
@@ -996,6 +1018,7 @@ def bicgstab(
                         bool(rnorm <= target))
 
 
+@span("linear.krylov")
 def bicgstab_lanes(
     matvec: Callable,
     b: torch.Tensor,
@@ -1082,6 +1105,7 @@ def bicgstab_lanes(
                         live & (rnorm <= target))
 
 
+@span("linear.solve")
 def dense_solve(ell: BlockELL, rhs: torch.Tensor) -> torch.Tensor:
     """Direct dense solve (tests / small systems)."""
     N, _, f, _ = ell.shape4
@@ -1089,6 +1113,7 @@ def dense_solve(ell: BlockELL, rhs: torch.Tensor) -> torch.Tensor:
     return x.reshape(N, f)
 
 
+@span("linear.solve")
 def dense_solve_lanes(ell: BlockELL, rhs: torch.Tensor) -> torch.Tensor:
     """``dense_solve`` of a lane-batched BlockELL: rhs (V, N, f), one
     batched dense solve of the lanes' (V, N*f, N*f) matrices."""

@@ -13,7 +13,8 @@ Replicates dolfin::NewtonSolver as configured by the reference's
 The reference's bounded ``fori_loop`` with a ``cond`` skip becomes a Python
 loop that tests convergence before every iteration and stops at
 ``max_iter``: the same iteration counts.  Each iteration reads the new
-residual norm back to the host once.
+residual norm back to the host once, in a ``newton.iter`` span
+(``utils.profiling``; backtracking trials included).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from gmpnp_tpu_torch.sync import to_host
+from gmpnp_tpu_torch.utils.profiling import span
 
 
 class NewtonResult(NamedTuple):
@@ -101,40 +103,41 @@ def newton_solve(
         return c
 
     while it < max_iter and not done():
-        if not carry_r:
-            r = residual_fn(u)
-        du, klin = linear_solve_fn(u, r)
-        if du_max is not None:
-            mag = torch.max(torch.abs(du))
-            du = du * torch.clamp(du_max / torch.clamp_min(mag, 1e-30),
-                                  max=1.0)
-        if backtracking > 0:
-            lams = [relaxation * 0.5 ** k for k in range(backtracking + 1)]
-            for lam in lams:
-                u_try = u - lam * du
-                rn_try = to_host(_l2(residual_fn(u_try)))
-                if bt_growth > 0.0:
-                    # non-monotone bounded-growth acceptance
-                    armijo = rn_try <= bt_growth * rn
-                else:
-                    armijo = rn_try <= (1.0 - 1e-4 * lam) * rn
-                # first accepted lambda wins; otherwise the last (smallest)
-                # trial is the fallback iterate
-                if armijo or lam == lams[-1]:
-                    break
-            u, rn_new = u_try, rn_try
-        else:
-            u = u - relaxation * du
-            r = residual_fn(u)
-            rn_new = to_host(_l2(r))
-        it += 1
-        lin += int(klin)
-        if stall:
-            # consecutive iterations with < 5% improvement over the best
-            improved = rn_new < 0.95 * best
-            best = min(best, rn_new)
-            ct = 0 if improved else ct + 1
-        rn = rn_new
+        with span("newton.iter"):
+            if not carry_r:
+                r = residual_fn(u)
+            du, klin = linear_solve_fn(u, r)
+            if du_max is not None:
+                mag = torch.max(torch.abs(du))
+                du = du * torch.clamp(du_max / torch.clamp_min(mag, 1e-30),
+                                      max=1.0)
+            if backtracking > 0:
+                lams = [relaxation * 0.5 ** k for k in range(backtracking + 1)]
+                for lam in lams:
+                    u_try = u - lam * du
+                    rn_try = to_host(_l2(residual_fn(u_try)))
+                    if bt_growth > 0.0:
+                        # non-monotone bounded-growth acceptance
+                        armijo = rn_try <= bt_growth * rn
+                    else:
+                        armijo = rn_try <= (1.0 - 1e-4 * lam) * rn
+                    # first accepted lambda wins; otherwise the last (smallest)
+                    # trial is the fallback iterate
+                    if armijo or lam == lams[-1]:
+                        break
+                u, rn_new = u_try, rn_try
+            else:
+                u = u - relaxation * du
+                r = residual_fn(u)
+                rn_new = to_host(_l2(r))
+            it += 1
+            lin += int(klin)
+            if stall:
+                # consecutive iterations with < 5% improvement over the best
+                improved = rn_new < 0.95 * best
+                best = min(best, rn_new)
+                ct = 0 if improved else ct + 1
+            rn = rn_new
 
     stalled_ok = stall and ct >= stall_iters and best < stall_atol
     return NewtonResult(
@@ -224,49 +227,50 @@ def newton_solve_lanes(
 
     active = (it < max_iter) & ~done()
     while active.any():
-        if not carry_r:
-            r = residual_fn(u)
-        du, klin = linear_solve_fn(u, r, active)
-        if du_max is not None:
-            mag = torch.amax(torch.abs(du.reshape(V, -1)), dim=1)
-            du = du * torch.clamp(
-                du_max / torch.clamp_min(mag, 1e-30), max=1.0).reshape(
-                    (-1,) + (1,) * (du.dim() - 1))
-        if backtracking > 0:
-            lams = [relaxation * 0.5 ** k for k in range(backtracking + 1)]
-            u_new, rn_new = u, rn.copy()
-            pending = active.copy()
-            for lam in lams:
-                u_try = u - lam * du
-                rn_try = to_host(_l2_lanes(residual_fn(u_try)))
-                if bt_growth > 0.0:
-                    armijo = rn_try <= bt_growth * rn
-                else:
-                    armijo = rn_try <= (1.0 - 1e-4 * lam) * rn
-                # per lane: the first accepted lambda wins, else the last
-                take = pending & (armijo | (lam == lams[-1]))
-                u_new = torch.where(_lanes(take, u), u_try, u_new)
-                rn_new = np.where(take, rn_try, rn_new)
-                pending &= ~take
-                if not pending.any():
-                    break
-        else:
-            u_try = u - relaxation * du
-            r_try = residual_fn(u_try)
-            rn_try = to_host(_l2_lanes(r_try))
-            keep = _lanes(active, u)
-            u_new = torch.where(keep, u_try, u)
-            r = torch.where(keep, r_try, r)
-            rn_new = np.where(active, rn_try, rn)
-        u = u_new
-        it += active
-        lin += np.where(active, np.asarray(klin, np.int64), 0)
-        if stall:
-            improved = rn_new < 0.95 * best
-            ct = np.where(active, np.where(improved, 0, ct + 1), ct)
-            best = np.where(active, np.minimum(best, rn_new), best)
-        rn = rn_new
-        active = (it < max_iter) & ~done()
+        with span("newton.iter"):
+            if not carry_r:
+                r = residual_fn(u)
+            du, klin = linear_solve_fn(u, r, active)
+            if du_max is not None:
+                mag = torch.amax(torch.abs(du.reshape(V, -1)), dim=1)
+                du = du * torch.clamp(
+                    du_max / torch.clamp_min(mag, 1e-30), max=1.0).reshape(
+                        (-1,) + (1,) * (du.dim() - 1))
+            if backtracking > 0:
+                lams = [relaxation * 0.5 ** k for k in range(backtracking + 1)]
+                u_new, rn_new = u, rn.copy()
+                pending = active.copy()
+                for lam in lams:
+                    u_try = u - lam * du
+                    rn_try = to_host(_l2_lanes(residual_fn(u_try)))
+                    if bt_growth > 0.0:
+                        armijo = rn_try <= bt_growth * rn
+                    else:
+                        armijo = rn_try <= (1.0 - 1e-4 * lam) * rn
+                    # per lane: the first accepted lambda wins, else the last
+                    take = pending & (armijo | (lam == lams[-1]))
+                    u_new = torch.where(_lanes(take, u), u_try, u_new)
+                    rn_new = np.where(take, rn_try, rn_new)
+                    pending &= ~take
+                    if not pending.any():
+                        break
+            else:
+                u_try = u - relaxation * du
+                r_try = residual_fn(u_try)
+                rn_try = to_host(_l2_lanes(r_try))
+                keep = _lanes(active, u)
+                u_new = torch.where(keep, u_try, u)
+                r = torch.where(keep, r_try, r)
+                rn_new = np.where(active, rn_try, rn)
+            u = u_new
+            it += active
+            lin += np.where(active, np.asarray(klin, np.int64), 0)
+            if stall:
+                improved = rn_new < 0.95 * best
+                ct = np.where(active, np.where(improved, 0, ct + 1), ct)
+                best = np.where(active, np.minimum(best, rn_new), best)
+            rn = rn_new
+            active = (it < max_iter) & ~done()
 
     stalled_ok = ((ct >= stall_iters) & (best < stall_atol) if stall
                   else np.zeros(V, bool))

@@ -18,6 +18,10 @@ Newton-Schulz refinement pass.
 ``slab_mode='cr'`` replaces the Thomas scan by slab-granular block cyclic
 reduction (``slab_factor_cr``): ceil(log2 S) levels of batched m x m
 inverses instead of S sequential ones.
+
+``slab_prepare`` and ``slab_prepare_lanes`` run in ``linear.factor``
+spans, the applies and ``slab_direct_solve`` in ``linear.solve`` spans
+(``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 from gmpnp_tpu_torch.fem.assembly import BlockELL
 from gmpnp_tpu_torch.ops.ell_spmv import ell_spmv
 from gmpnp_tpu_torch.solve.smallblock import block_inv
+from gmpnp_tpu_torch.utils.profiling import span
 
 
 def full_f32_precision() -> None:
@@ -584,6 +589,7 @@ class SlabPrepared(NamedTuple):
     factors: object           # f32 SlabFactors (Thomas) or CRFactors
 
 
+@span("linear.factor")
 def slab_prepare(ell: BlockELL, plan: SlabPlan,
                  mode: str = "thomas") -> SlabPrepared:
     """Equilibrate in f64, relayout to bands, factor in f32.
@@ -598,6 +604,7 @@ def slab_prepare(ell: BlockELL, plan: SlabPlan,
                         factors=factor(ell_eq, plan))
 
 
+@span("linear.factor")
 def slab_prepare_lanes(ell: BlockELL, plan: SlabPlan,
                        mode: str = "thomas") -> SlabPrepared:
     """``slab_prepare`` of a lane-batched BlockELL: per-lane f64
@@ -617,6 +624,7 @@ def slab_prepare_lanes(ell: BlockELL, plan: SlabPlan,
                         factors=factor(ell_eq, plan))
 
 
+@span("linear.solve")
 def slab_apply_lanes(
     prep: SlabPrepared,
     rhs: torch.Tensor,
@@ -650,6 +658,7 @@ def slab_apply_lanes(
                            converged=res.converged)
 
 
+@span("linear.solve")
 def slab_apply(
     prep: SlabPrepared,
     rhs: torch.Tensor,
@@ -677,6 +686,7 @@ def slab_apply(
                            converged=res.converged)
 
 
+@span("linear.solve")
 def slab_apply_f32(
     prep: SlabPrepared,
     rhs: torch.Tensor,
@@ -719,6 +729,7 @@ def slab_apply_f32(
                            iters=res.iters, converged=res.converged)
 
 
+@span("linear.solve")
 def slab_direct_solve(
     ell: BlockELL,
     rhs: torch.Tensor,

@@ -15,6 +15,16 @@ block-tridiagonal kinds (``tridiag_cr``, also carried, and
 block-Jacobi, multicolor SSOR or AMG preconditioning) and the dense test
 solver.  ``refresh='auto'`` is resolved by timing both modes
 (``calibrate_refresh``) before a step is built.
+
+Spans (``utils.profiling``): ``run_transient`` opens ``step`` around each
+step and ``step.update`` around the model's carry update (the step's
+parameters before it, the carry and the record after it), all under one
+step id.  Counters: every factorization of a Jacobian for a direct solve
+adds its lanes to ``factors.<reason>``: the refresh mode (``step``,
+``iter``) or, in the carried chord step, ``init``, ``fallback`` (the
+exact re-solve after a failed chord attempt and the factor at its end)
+and ``refresh`` (proactive, after more than ``refresh_iters``
+iterations).
 """
 
 from __future__ import annotations
@@ -65,6 +75,7 @@ from gmpnp_tpu_torch.solve.slab import (
 )
 from gmpnp_tpu_torch.solve.smallblock import block_inv
 from gmpnp_tpu_torch.sync import to_host
+from gmpnp_tpu_torch.utils.profiling import begin_step, count, end_step, span
 
 
 @dataclass(frozen=True)
@@ -186,8 +197,12 @@ def _assemble(space: FemSpace, form: WeakForm, cfg: LinearConfig, bc, u,
         space.jacobian(form, u, u_prev, theta, aux=aux, dtype=jdt))
 
 
-def make_linear_solver(space: FemSpace, form: WeakForm, cfg: LinearConfig):
-    """(bc, u_prev, theta) -> callable (u, r) -> (du, linear_iters)."""
+def make_linear_solver(space: FemSpace, form: WeakForm, cfg: LinearConfig,
+                       factor_reason: Optional[str] = None):
+    """(bc, u_prev, theta) -> callable (u, r) -> (du, linear_iters).
+
+    Each factorization of a direct kind is counted under
+    ``factors.<factor_reason>`` (default: the refresh mode)."""
     _validate_linear_config(cfg)
     if cfg.refresh == "carried":
         raise ValueError(
@@ -200,6 +215,7 @@ def make_linear_solver(space: FemSpace, form: WeakForm, cfg: LinearConfig):
             "building a step — call calibrate_refresh (models wire this "
             "automatically in their run() paths)")
     full_f32_precision()
+    factors = f"factors.{factor_reason or cfg.refresh}"
     slab_plan = _slab_plan(space, cfg) if cfg.kind == "slab_direct" else None
     amg_plan = None
     if cfg.precond == "amg" and cfg.kind in ("gmres", "bicgstab"):
@@ -208,6 +224,7 @@ def make_linear_solver(space: FemSpace, form: WeakForm, cfg: LinearConfig):
         from gmpnp_tpu_torch.solve.amg import AMGPlan
         amg_plan = AMGPlan.build(np.asarray(space.adj), space.n_fields)
 
+    @span("linear.solve")
     def krylov(ell, r):
         out_dtype = r.dtype
         if cfg.solve_dtype == "f32":
@@ -244,6 +261,7 @@ def make_linear_solver(space: FemSpace, form: WeakForm, cfg: LinearConfig):
             # reuse for all iterations
             prep = slab_prepare(assemble(bc.project(u_prev)), slab_plan,
                                 mode=cfg.slab_mode)
+            count(factors)
 
             def lin_frozen(u, r):
                 res = slab_apply(prep, r, slab_plan, tol=cfg.tol,
@@ -254,6 +272,9 @@ def make_linear_solver(space: FemSpace, form: WeakForm, cfg: LinearConfig):
 
         def lin(u, r):
             ell = assemble(u)
+            if cfg.kind in ("gmres", "bicgstab"):
+                return krylov(ell, r)
+            count(factors)
             if cfg.kind == "tridiag_cr":
                 if cfg.solve_dtype == "f32":
                     res = tridiag_mp_solve(ell, r, tol=cfg.tol,
@@ -266,8 +287,6 @@ def make_linear_solver(space: FemSpace, form: WeakForm, cfg: LinearConfig):
                     *block_tridiag_from_ell(ell), r), 0
             if cfg.kind == "dense":
                 return dense_solve(ell, r), 0
-            if cfg.kind in ("gmres", "bicgstab"):
-                return krylov(ell, r)
             res = slab_direct_solve(ell, r, slab_plan, tol=cfg.tol,
                                     max_refine=cfg.max_refine,
                                     mode=cfg.slab_mode)
@@ -375,12 +394,14 @@ def make_linear_solver_lanes(space: FemSpace, form: WeakForm,
             f"lane-batched steps take refresh 'iter' or 'step', got "
             f"{cfg.refresh!r} (sweeps downgrade or resolve the others)")
     full_f32_precision()
+    factors = f"factors.{cfg.refresh}"
     plan = _slab_plan(space, cfg) if cfg.kind == "slab_direct" else None
     amg_plan = None
     if cfg.precond == "amg" and cfg.kind in ("gmres", "bicgstab"):
         from gmpnp_tpu_torch.solve.amg import AMGPlan
         amg_plan = AMGPlan.build(np.asarray(space.adj), space.n_fields)
 
+    @span("linear.solve")
     def krylov(ell, r, active):
         out_dtype = r.dtype
         if cfg.solve_dtype == "f32":
@@ -414,8 +435,10 @@ def make_linear_solver_lanes(space: FemSpace, form: WeakForm,
 
         if cfg.kind == "slab_direct":
             def prepare(u):
-                return slab_prepare_lanes(assemble(u), plan,
+                prep = slab_prepare_lanes(assemble(u), plan,
                                           mode=cfg.slab_mode)
+                count(factors, prep.Dinv0.shape[0])
+                return prep
 
             frozen = (prepare(bc.project(u_prev)) if cfg.refresh == "step"
                       else None)
@@ -431,7 +454,10 @@ def make_linear_solver_lanes(space: FemSpace, form: WeakForm,
 
         def lin(u, r, active):
             ell = assemble(u)
+            if cfg.kind in ("gmres", "bicgstab"):
+                return krylov(ell, r, active)
             none = np.zeros(r.shape[0], np.int64)
+            count(factors, r.shape[0])
             if cfg.kind == "tridiag_cr":
                 if cfg.solve_dtype == "f32":
                     res = tridiag_mp_solve_lanes(
@@ -445,7 +471,6 @@ def make_linear_solver_lanes(space: FemSpace, form: WeakForm,
                     *block_tridiag_from_ell_lanes(ell), r), none
             if cfg.kind == "dense":
                 return dense_solve_lanes(ell, r), none
-            return krylov(ell, r, active)
 
         return lin
 
@@ -497,7 +522,7 @@ def run_transient_lanes(step: Callable, carry0, n_steps: int,
     N, f), StepStats of (V, steps) arrays))."""
     final, (u_hist, stats) = run_transient(
         step, carry0, n_steps, update_carry=update_carry,
-        theta_of_carry=theta_of_carry)
+        theta_of_carry=theta_of_carry, lanes=carry0[0].shape[0])
     return final, (u_hist.transpose(0, 1),
                    StepStats(*(np.asarray(a).T for a in stats)))
 
@@ -576,6 +601,7 @@ def make_carried_step(
 
     def prep_init(u0, theta):
         bc = bc_of_theta(theta)
+        count("factors.init")
         return ChordCarry(
             prep=prep_of(bc.project(u0), u0, theta, bc),
             du=torch.zeros_like(u0),
@@ -584,7 +610,8 @@ def make_carried_step(
 
     # exact-Newton fallback: per-iterate assemble+factor, as refresh='iter'
     exact_lin_builder = make_linear_solver(
-        space, form, dataclasses.replace(linear_cfg, refresh="iter"))
+        space, form, dataclasses.replace(linear_cfg, refresh="iter"),
+        factor_reason="fallback")
 
     chord_tol = (linear_cfg.tol if linear_cfg.chord_tol is None
                  else linear_cfg.chord_tol)
@@ -647,11 +674,13 @@ def make_carried_step(
                 residual, exact_lin_builder(bc, u_prev, theta), u0_safe,
                 max_iter=newton_cfg.max_iter, **_newton_kwargs(newton_cfg))
             prep_used = prep_of(res.u, u_prev, theta, bc)
+            count("factors.fallback")
 
         # proactive refresh for the NEXT step when the stale factor made
         # this (converged) step slow
         if res1.converged and res1.iterations > linear_cfg.refresh_iters:
             prep_new = prep_of(res.u, u_prev, theta, bc)
+            count("factors.refresh")
         else:
             prep_new = prep_used
 
@@ -765,6 +794,7 @@ def run_transient(
     record: Optional[Callable] = None,
     record_stride: int = 1,
     step_state0=None,
+    lanes: int = 1,
 ):
     """Generic transient loop.
 
@@ -781,6 +811,9 @@ def run_transient(
     factorization of ``make_carried_step``): the step is called as
     ``step(u, theta, state) -> (u_new, stats, state_new)`` and the return
     becomes ``((u_final, extra_final, state_final), stacked_ys)``.
+
+    Each step runs in a ``step`` span (attributes ``index`` and ``lanes``)
+    between two ``step.update`` spans, all three under one step id.
     """
     if update_carry is None:
         update_carry = lambda extra, u, i: extra
@@ -797,14 +830,19 @@ def run_transient(
     st = step_state0
     ys = []
     for i in range(n_steps):
-        theta = theta_of_carry((u, extra), i)
-        if stateful:
-            u, stats, st = step(u, theta, st)
-        else:
-            u, stats = step(u, theta)
-        extra = update_carry(extra, u, i)
-        if (i + 1) % k == 0:
-            ys.append(record(u, stats))
+        outer = begin_step()
+        with span("step.update"):
+            theta = theta_of_carry((u, extra), i)
+        with span("step", index=i, lanes=lanes):
+            if stateful:
+                u, stats, st = step(u, theta, st)
+            else:
+                u, stats = step(u, theta)
+        with span("step.update"):
+            extra = update_carry(extra, u, i)
+            if (i + 1) % k == 0:
+                ys.append(record(u, stats))
+        end_step(outer)
     final = (u, extra, st) if stateful else (u, extra)
     return final, (_stack(ys) if ys else None)
 

@@ -6,12 +6,15 @@ the host once per iteration.  All such reads on the solver path go through
 no synchronisation and is not counted).  ``SYNCS`` is the running total;
 callers take differences around the work they measure.  ``READS`` counts
 every call with a tensor, on any device: the reads a loop makes, which a
-CPU run can count too.
+CPU run can count too.  A read from a device runs in a ``host.read`` span
+(``utils.profiling``): the time the host waits for the card.
 """
 
 from __future__ import annotations
 
 import torch
+
+from gmpnp_tpu_torch.utils.profiling import span
 
 SYNCS = 0
 READS = 0
@@ -24,8 +27,14 @@ def to_host(t):
     if not isinstance(t, torch.Tensor):
         return t
     READS += 1
-    if t.device.type != "cpu":
-        SYNCS += 1
+    if t.device.type == "cpu":
+        return _read(t)
+    SYNCS += 1
+    with span("host.read"):
+        return _read(t)
+
+
+def _read(t):
     if t.dim() == 0:
         return t.item()
     return t.detach().cpu().numpy()

@@ -1,7 +1,7 @@
 """Port vs reference: the remaining solver modes — slab cyclic reduction
 (``slab_mode='cr'``), f32 element Jacobians (``jac_dtype='f32'``),
 ``calibrate_refresh`` (``refresh='auto'``) — and the observability
-utilities (StepLogger, PhaseTimer, trace_profile, ``verbose=``).
+utilities (StepLogger, trace_profile, ``verbose=``).
 
 Tolerances, each with its reason:
 - ``slab_factor_cr`` / ``slab_solve_cr`` on seeded, diagonally dominant f32
@@ -199,18 +199,6 @@ def test_step_logger_matches_reference(tmp_path):
             out[name] = (buf.getvalue(), fh.read(), summary)
     assert out["port"] == out["ref"]
     assert "WARNING" in out["port"][0]
-
-
-def test_phase_timer():
-    from gmpnp_tpu_torch.utils import PhaseTimer
-
-    t = PhaseTimer()
-    for name in ("a", "a", "b"):
-        with t.phase(name):
-            pass
-    assert t.counts == {"a": 2, "b": 1}
-    assert set(t.as_dict()) == {"a", "b"}
-    assert "a" in t.report() and "ms/call" in t.report()
 
 
 def test_trace_profile_writes_a_trace(tmp_path):
