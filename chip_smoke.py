@@ -44,8 +44,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    and repeatable only, the segment sum on rows of 0, 1, 31, 32, 33 and
    100 entries at d = 1, 5, 7, 9, 16, 17, 49, 81 and 129 (three lanes,
    and on a side stream) and ``block_inv`` at every f from 1 to 16 at
-   batches of 1, 31, 37 and 130 (with a NaN);
-4. the paths, each with every launch count (all three kernels) set to 0
+   batches of 1, 31, 37 and 130 (with a NaN).  Then the pore's element
+   residuals (GMPNP f=9, reaction-diffusion f=7, three GMPNP lanes under
+   vmap): within 1e-12 per field of the plain version, bitwise repeatable,
+   one launch a call, each lane bitwise its one-lane launch; times as
+   above, with the torch.func element loop the kernel replaced as the
+   yardstick and a one-element launch as the floor;
+4. the paths, each with every launch count (all four kernels) set to 0
    before it and read after it; per-step wall time, Newton and linear
    iterations, host syncs and kernel launches; outputs present and finite;
    every model path launched the segment-sum and ``block_inv`` kernels:
@@ -645,11 +650,21 @@ BLOCK_INV_RECORDS = [
     ("block_inv_f32_cr_tridiag_mp_lanes", "cr_lanes", 7, torch.float32,
      "sweep edl_1d tridiag_mp_solve f32 batched"),
 ]
+#: the pore's element residuals at the paths' shapes (the L=50 nm, R=5 nm
+#: pore, f64): (record name, physics, lanes, phase-4 path)
+PORE_RESIDUAL_RECORDS = [
+    ("pore_residual_f64_gmpnp", "GMPNP", 1, "pore_3d carried"),
+    ("pore_residual_f64_rxn_diff_3d", "rxn_diff", 1, "rxn_diff_3d carried"),
+    ("pore_residual_f64_gmpnp_lanes", "GMPNP", LANES,
+     "sweep pore_3d batched"),
+]
 HOT_SOURCES = {
     "segment_sum": ("gmpnp_tpu_torch/csrc/segment_sum.cu",
                     "gmpnp_tpu/fem/assembly.py:167"),
     "block_inv": ("gmpnp_tpu_torch/csrc/block_inv.cu",
                   "gmpnp_tpu/solve/smallblock.py:46"),
+    "pore_residual": ("gmpnp_tpu_torch/csrc/pore_residual.cu",
+                      "gmpnp_tpu/fem/assembly.py:332"),
 }
 
 
@@ -686,6 +701,114 @@ def block_inv_bound(batch, f, dtype):
     t_ops = batch * 2 * f * f * (2 * f - 1) / PEAK_FLOPS[dtype]
     return {"bytes": nbytes, "bound_us": max(t_bytes, t_ops) * 1e6,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def pore_residual_bound(C, N, f, Q, lanes=1):
+    """The cells, gradients and volumes read once, u and u_prev read and
+    the element residuals written once per lane; or about 64 f + 40 f64
+    operations per element and quadrature point, whichever is longer."""
+    nbytes = C * (4 + 12 + 1) * 8 + lanes * (2 * N * f + C * 4 * f) * 8
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = lanes * C * Q * (64 * f + 40) / PEAK_FLOPS[torch.float64]
+    return {"bytes": nbytes, "bound_us": max(t_bytes, t_ops) * 1e6,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def check_pore_residual(dev, rng, library=True):
+    """Phase 3, the pore's element residuals: at every path shape the
+    kernel within KERNEL_TOL per field of its plain version, bitwise
+    repeatable, over lanes (under vmap, one launch) bitwise equal to
+    one-lane launches; then the times, with the torch.func element loop
+    the kernel replaced (FemSpace's vmap over the form's integrand) as the
+    yardstick.  Returns the timed records keyed by name."""
+    from gmpnp_tpu_torch.models import pore_3d
+    from gmpnp_tpu_torch.ops import pore_residual, pore_residual_reference
+    from gmpnp_tpu_torch.testing import pore_states
+
+    records = {}
+    progs = {}
+    for name, physics, lanes, path in PORE_RESIDUAL_RECORDS:
+        if physics not in progs:
+            progs[physics] = pore_3d.build(
+                pore_3d.Pore3DConfig(physics=physics, **PORE_KW), device=dev)
+        prog = progs[physics]
+        sp, form = prog.space, prog.form
+        d = sp.dev
+        C, Q, N, f = (sp.cells.shape[0], sp.Nq.shape[0], sp.num_vertices,
+                      sp.n_fields)
+        seeds = [int(s) for s in rng.integers(0, 2 ** 31, size=lanes)]
+        states = [pore_states(prog, s) for s in seeds]
+        U = torch.stack([a for a, _ in states])
+        UP = torch.stack([b for _, b in states])
+        dt = prog._theta_of_carry((U[0], 0.0), 0)["dt"]
+        theta = {"dt": dt}
+        tables = (d["cells"], d["gradN"], d["vols"], d["Nq"], d["wq"])
+
+        def kernel(u, up, tabs):
+            if lanes == 1:
+                return pore_residual(u[0], up[0], dt, *tabs, form.spec)
+            return torch.func.vmap(lambda a, b: pore_residual(
+                a, b, dt, *tabs, form.spec))(u, up)
+
+        def plain(u, up, tabs):
+            return torch.func.vmap(lambda a, b: pore_residual_reference(
+                a, b, dt, *tabs, form.spec))(u, up)
+
+        def old_loop(u, up, tabs):
+            cells, gradN, vols = tabs[:3]
+            return torch.func.vmap(lambda a, b: torch.func.vmap(
+                lambda ue, upe, g, v, x: sp._local_volume_residual(
+                    form, ue, upe, g, v, x, theta))(
+                        a[cells], b[cells], gradN, vols, d["xq"]))(u, up)
+
+        n0 = sum(_launch_counts("pore_residual").values())
+        got = kernel(U, UP, tables)
+        again = kernel(U, UP, tables)
+        launched = sum(_launch_counts("pore_residual").values()) - n0
+        ref = plain(U, UP, tables).reshape(got.shape)
+        torch.cuda.synchronize()
+        rel = max(float((got[..., i] - ref[..., i]).norm()
+                        / ref[..., i].norm()) for i in range(f))
+        ok = {"within_tol": rel <= KERNEL_TOL[torch.float64],
+              "bitwise_repeatable": torch.equal(got, again),
+              "one_launch_a_call": launched == 2}
+        if lanes > 1:
+            one = torch.stack([pore_residual(U[v], UP[v], dt, *tables,
+                                             form.spec)
+                               for v in range(lanes)])
+            ok["lanes_bitwise_one_lane"] = torch.equal(got, one)
+        shape = (lanes, C, 4, f) if lanes > 1 else (C, 4, f)
+        line = (f"kernel pore_residual {name} {'x'.join(map(str, shape))} "
+                f"f64: {ok} max_rel_l2_per_field={rel!r}")
+        print(line, flush=True)
+        if not all(ok.values()):
+            raise AssertionError(line)
+        bound = pore_residual_bound(C, N, f, Q, lanes)
+        copies = max(1, -(-COLD_ROTATION_BYTES // bound["bytes"]))
+        ops = [(U, UP, tables)] + [
+            (U.clone(), UP.clone(), tuple(t.clone() for t in tables[:3])
+             + tables[3:]) for _ in range(copies - 1)]
+        rec = hot_times(
+            f"pore_residual {name} {'x'.join(map(str, shape))}",
+            bound["bytes"], bound, lambda i: kernel(*ops[i]),
+            lambda i: plain(*ops[i]),
+            (lambda i: old_loop(*ops[i])) if library else None, copies)
+        records[name] = {
+            "shape": list(shape), "dtype": "float64", "path": path,
+            "launch_key": _shape_key(((lanes,) if lanes > 1 else ())
+                                     + (C, Q, f, "float64")),
+            "max_rel_l2_per_field": rel,
+            "library": "FemSpace's vmap of _local_volume_residual over the "
+                       "form's integrand (the path the kernel replaced)",
+            **ok, **rec}
+    return records
+
+
+def _launch_counts(kernel):
+    """A kernel's launches per dtype (``ops.COUNTERS``)."""
+    from gmpnp_tpu_torch import ops
+
+    return ops.COUNTERS[kernel][0]
 
 
 def hot_times(label, nbytes, bound, kernel, plain, library, copies):
@@ -997,8 +1120,9 @@ def check_block_inv_edges(dev, rng):
 
 def launch_floors(dev):
     """The device time of a launch that does almost nothing, per kernel
-    and type: one row of one value, one 1 x 1 block."""
-    from gmpnp_tpu_torch.ops import block_inv, segment_sum
+    and type: one row of one value, one 1 x 1 block, one element."""
+    from gmpnp_tpu_torch.models import pore_3d
+    from gmpnp_tpu_torch.ops import block_inv, pore_residual, segment_sum
 
     floors = {}
     i64 = dict(dtype=torch.int64, device=dev)
@@ -1010,9 +1134,16 @@ def launch_floors(dev):
             [lambda: segment_sum(v, z, z, o)])
         A = torch.ones((1, 1, 1), dtype=dtype, device=dev)
         floors["block_inv", dtype] = graph_us([lambda: block_inv(A)])
+    prog = pore_3d.build(pore_3d.Pore3DConfig(mesh_resolution=(2, 10)),
+                         device=dev)
+    u = prog.initial_state()
+    t = prog.space.dev
+    one = (t["cells"][:1], t["gradN"][:1], t["vols"][:1], t["Nq"], t["wq"])
+    floors["pore_residual", torch.float64] = graph_us(
+        [lambda: pore_residual(u, u, 1.0, *one, prog.form.spec)])
     print(f"kernel launch floors (segment_sum one value, block_inv one 1x1 "
-          f"block): { {f'{k} {t}': v for (k, t), v in floors.items()} }",
-          flush=True)
+          f"block, pore_residual one element): "
+          f"{ {f'{k} {t}': v for (k, t), v in floors.items()} }", flush=True)
     return floors
 
 
@@ -1025,6 +1156,7 @@ def check_hot_kernels(dev, library=True):
     floors = launch_floors(dev)
     records = check_segment_sum(dev, spaces, rng, library)
     records.update(check_block_inv(dev, spaces, rng, library))
+    records.update(check_pore_residual(dev, rng, library))
     if hasattr(importlib.import_module("gmpnp_tpu_torch.testing"),
                "edge_segment_tables"):   # not in checkouts before it
         check_segment_sum_edges(dev, rng)
@@ -1087,8 +1219,7 @@ def hot_kernel_records(hot, launches):
 
 
 def _kernel_of(record_name):
-    return ("segment_sum" if record_name.startswith("segment_sum")
-            else "block_inv")
+    return next(k for k in HOT_SOURCES if record_name.startswith(k))
 
 
 @contextlib.contextmanager
@@ -2690,25 +2821,31 @@ def profile_calls(dev, mesh_resolution=None, reps=5):
 
 @contextlib.contextmanager
 def plain_route():
-    """FemSpace's segment sums and the solvers' block inverses through
-    their plain versions (the torch ops the kernels replaced), for
-    comparing the two routes inside one run."""
+    """FemSpace's segment sums and pore element residuals and the solvers'
+    block inverses through the torch ops the kernels replaced (the plain
+    versions; FemSpace's vmapped element loop for the element residuals),
+    for comparing the two routes inside one run."""
     from gmpnp_tpu_torch.fem import assembly
     from gmpnp_tpu_torch.ops import block_inv_reference, segment_sum_reference
     from gmpnp_tpu_torch.solve import smallblock
 
-    saved = assembly.segment_sum_op, smallblock._block_inv
+    space = assembly.FemSpace
+    saved = (assembly.segment_sum_op, smallblock._block_inv,
+             space.uses_residual_kernel)
     assembly.segment_sum_op = segment_sum_reference
     smallblock._block_inv = block_inv_reference
+    space.uses_residual_kernel = lambda self, form, device: False
     try:
         yield
     finally:
-        assembly.segment_sum_op, smallblock._block_inv = saved
+        (assembly.segment_sum_op, smallblock._block_inv,
+         space.uses_residual_kernel) = saved
 
 
 def profile_hot_paths(dev, reps=5):
-    """The calls the segment-sum and block_inv kernels serve, through the
-    kernels and through their plain versions, in turns (plain, kernel,
+    """The calls the segment-sum, block_inv and pore residual kernels
+    serve, through the kernels and through the torch ops they replaced
+    (``plain_route``), in turns (plain, kernel,
     kernel, plain): FemSpace.residual and .jacobian at the L=50 nm, R=5 nm
     pore's cold start (GMPNP), and the fused f64 1D CR solve and the f32
     CR factorization on the EDL cold-start Jacobian at L_n = 50 um.  Per

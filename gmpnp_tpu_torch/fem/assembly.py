@@ -12,6 +12,12 @@ sorted neighbor list (padded with self-loops) and per neighbor an
 (n_fields x n_fields) dense block.  Every shape is static, and the matvec is
 one pass of the hand-written kernel in ``ops.ell_spmv``.
 
+On CUDA tensors the volume residual of a form that carries a spec (the
+3D pore's ``models.pore_3d.PoreVolumeSpec``) is one hand-written kernel
+(``ops.pore_residual``, ``FemSpace.uses_residual_kernel``); the Jacobian
+keeps ``jacfwd`` of the torch integrand, and the element loop
+(``element_volume_residual``) serves every other residual.
+
 ``FemSpace.residual`` and ``residual_lanes`` run in ``assembly.residual``
 spans, ``jacobian`` and ``jacobian_lanes`` in ``assembly.jacobian`` spans
 (``utils.profiling``; a lane call holds its vmapped single-lane one).
@@ -40,6 +46,7 @@ from gmpnp_tpu_torch.mesh.core import (
     facet_measures,
     vertex_adjacency,
 )
+from gmpnp_tpu_torch.ops.pore_residual import pore_residual
 from gmpnp_tpu_torch.ops.segment_sum import segment_sum_op
 from gmpnp_tpu_torch.utils.profiling import span
 
@@ -280,6 +287,31 @@ def _device_tables(space: "FemSpace") -> dict:
     return t
 
 
+def element_volume_residual(volume, u_e, u_prev_e, gradN_c, vol_c, Nq, wq,
+                            xq_c, theta, aux_e=None):
+    """Element residual (nv, fields) of one P1 element: ``volume`` (a
+    ``WeakForm.volume``, with an ``aux`` argument where ``aux_e`` is
+    given) at the quadrature points (Nq (Q, nv), wq (Q,), xq_c (Q, dim) or
+    None), fval tested with N_a and fgrad with grad N_a."""
+    # grad u (fields, dim): constant over the P1 element
+    grad_u = torch.einsum("af,ad->fd", u_e, gradN_c)
+
+    def at_q(Nq_q, x_q):
+        u_q = Nq_q @ u_e           # (fields,)
+        up_q = Nq_q @ u_prev_e
+        if aux_e is not None:
+            aux_q = Nq_q @ aux_e
+            fval, fgrad = volume(u_q, grad_u, up_q, aux_q, x_q, theta)
+        else:
+            fval, fgrad = volume(u_q, grad_u, up_q, x_q, theta)
+        # (nv, fields): fval tested with N_a, fgrad with grad N_a
+        return (torch.outer(Nq_q, fval)
+                + torch.einsum("ad,fd->af", gradN_c, fgrad))
+
+    contrib = vmap(at_q, in_dims=(0, None if xq_c is None else 0))(
+        Nq, xq_c)                                       # (Q, nv, fields)
+    return vol_c * torch.einsum("q,qaf->af", wq, contrib)
+
 @dataclass(frozen=True)
 class FemSpace:
     """Precomputed multi-field P1 space over a mesh.
@@ -397,23 +429,9 @@ class FemSpace:
     def _local_volume_residual(self, form: WeakForm, u_e, u_prev_e,
                                gradN_c, vol_c, xq_c, theta, aux_e=None):
         """Element residual (nv, fields) for one element."""
-        # grad u (fields, dim): constant over the P1 element
-        grad_u = torch.einsum("af,ad->fd", u_e, gradN_c)
-
-        def at_q(Nq_q, x_q):
-            u_q = Nq_q @ u_e           # (fields,)
-            up_q = Nq_q @ u_prev_e
-            if form.n_aux:
-                aux_q = Nq_q @ aux_e
-                fval, fgrad = form.volume(u_q, grad_u, up_q, aux_q, x_q, theta)
-            else:
-                fval, fgrad = form.volume(u_q, grad_u, up_q, x_q, theta)
-            # (nv, fields): fval tested with N_a, fgrad with grad N_a
-            return (torch.outer(Nq_q, fval)
-                    + torch.einsum("ad,fd->af", gradN_c, fgrad))
-
-        contrib = vmap(at_q)(self.dev["Nq"], xq_c)      # (Q, nv, fields)
-        return vol_c * torch.einsum("q,qaf->af", self.dev["wq"], contrib)
+        return element_volume_residual(
+            form.volume, u_e, u_prev_e, gradN_c, vol_c, self.dev["Nq"],
+            self.dev["wq"], xq_c, theta, aux_e if form.n_aux else None)
 
     def _local_facet_residual(self, fn, u_f, meas_f, shape, weights,
                               xq_f, theta):
@@ -428,25 +446,39 @@ class FemSpace:
 
     # -- global assembly -----------------------------------------------------
 
+    def uses_residual_kernel(self, form: WeakForm, device) -> bool:
+        """Whether ``residual`` takes the volume term of ``form`` on
+        ``device`` through the hand-written element kernel
+        (``ops.pore_residual``): CUDA, a form that carries the kernel's
+        spec for this many fields, no auxiliary fields, P1 tetrahedra."""
+        spec = form.spec
+        return (torch.device(device).type == "cuda" and spec is not None
+                and form.n_aux == 0 and self.dim == 3
+                and self.cells.shape[1] == 4
+                and spec.n_fields == self.n_fields)
+
     @span("assembly.residual")
     def residual(self, form: WeakForm, u, u_prev, theta,
                  aux=None) -> torch.Tensor:
         """Assembled residual (N, fields); ``aux`` (N, n_aux) when the form
-        declares auxiliary fields."""
+        declares auxiliary fields.  The volume term is the element kernel's
+        where ``uses_residual_kernel``, else the vmapped ``form.volume``."""
         d = self.dev
         cells = d["cells"]
-        u_e = u[cells]            # (C, nv, fields)
-        up_e = u_prev[cells]
-        if form.n_aux:
+        if self.uses_residual_kernel(form, u.device):
+            r_e = pore_residual(u, u_prev, theta["dt"], cells, d["gradN"],
+                                d["vols"], d["Nq"], d["wq"], form.spec)
+        elif form.n_aux:
             r_e = vmap(
                 lambda ue, upe, ax, g, v, x: self._local_volume_residual(
                     form, ue, upe, g, v, x, theta, ax)
-            )(u_e, up_e, aux[cells], d["gradN"], d["vols"], d["xq"])
+            )(u[cells], u_prev[cells], aux[cells], d["gradN"], d["vols"],
+              d["xq"])
         else:
             r_e = vmap(
                 lambda ue, upe, g, v, x: self._local_volume_residual(
                     form, ue, upe, g, v, x, theta)
-            )(u_e, up_e, d["gradN"], d["vols"], d["xq"])
+            )(u[cells], u_prev[cells], d["gradN"], d["vols"], d["xq"])
         # scatter-free reduction onto vertices (sorted-segment sum; the
         # facet terms below too): the same bits on every run on the card
         C, nv = self.cells.shape

@@ -56,6 +56,11 @@ class WeakForm:
     the volume signature gains an ``aux`` argument after ``u_prev``:
     ``volume(u, grad_u, u_prev, aux, x, theta)``; aux is interpolated at
     quadrature points like ``u`` but never differentiated.
+
+    ``spec`` (``models.pore_3d.PoreVolumeSpec``, or None) is the object
+    whose ``volume`` this is, where a hand-written kernel evaluates the same
+    integrand from its constants; ``FemSpace.residual`` then takes the
+    kernel on CUDA tensors (``FemSpace.uses_residual_kernel``).
     """
 
     def __init__(
@@ -64,8 +69,10 @@ class WeakForm:
         volume: VolumeFn,
         boundary: Optional[Dict[int, BoundaryFn]] = None,
         n_aux: int = 0,
+        spec: Any = None,
     ):
         self.n_fields = n_fields
         self.volume = volume
         self.boundary = dict(boundary or {})
         self.n_aux = n_aux
+        self.spec = spec

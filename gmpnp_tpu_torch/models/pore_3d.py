@@ -50,6 +50,8 @@ from gmpnp_tpu_torch.mesh import (
     read_dolfin_xml,
 )
 from gmpnp_tpu_torch.models import base
+from gmpnp_tpu_torch.ops.pore_residual import (
+    MAX_FIELDS, MIN_FIELDS, pack_constants)
 from gmpnp_tpu_torch.solve.timeloop import (
     LinearConfig,
     NewtonConfig,
@@ -154,6 +156,123 @@ def median(x: torch.Tensor) -> torch.Tensor:
     s = torch.sort(x).values
     n = s.shape[0]
     return (s[(n - 1) // 2] + s[n // 2]) * 0.5
+
+
+@dataclass(frozen=True)
+class PoreVolumeSpec:
+    """The pore's volume integrand and its constants (``build``):
+    ``n_fields`` = species (+ the potential with ``gmpnp``), the buffer
+    kinetics (species order, bulk concentrations c0, ``scale_R``, rate
+    constants), and for the GMPNP terms the charges ``z``, the steric
+    ``scale_vol``, the Poisson factor ``q``, ``steric_clip`` (0: off), the
+    hydration constants and the cation and proton indices.  ``volume`` is
+    the form's integrand; ``constants`` the same constants as the element
+    kernel reads them (``ops.pore_residual``)."""
+
+    n_fields: int
+    kinetics: BufferKinetics
+    gmpnp: bool
+    z: tuple
+    scale_vol: tuple
+    q: float
+    steric_clip: float
+    w_cat: float = 0.0
+    C0_cat: float = 0.0
+    w_H: float = 0.0
+    C0_H: float = 0.0
+    eps_rel: float = 0.0
+    cat_index: int = -1
+    proton_index: int = 0
+    #: ``volume``'s tensors and ``constants`` on each device they were made
+    #: for
+    _on_device: dict = field(default_factory=dict, init=False,
+                             compare=False, repr=False)
+
+    def __post_init__(self):
+        ns = len(self.kinetics.species)
+        if (self.n_fields != ns + int(self.gmpnp)
+                or not MIN_FIELDS <= self.n_fields <= MAX_FIELDS):
+            raise ValueError(f"PoreVolumeSpec: {ns} species and gmpnp="
+                             f"{self.gmpnp} do not make {self.n_fields} "
+                             f"fields, {MIN_FIELDS} to {MAX_FIELDS}")
+        if len(self.z) != ns or len(self.scale_vol) != ns:
+            raise ValueError("PoreVolumeSpec: z and scale_vol want one "
+                             "entry per species")
+        if self.gmpnp and not 0 <= self.cat_index < ns:
+            raise ValueError(f"PoreVolumeSpec: cation index "
+                             f"{self.cat_index} outside the species")
+
+    def volume(self, u, gu, up, x, theta):
+        """The integrand at one quadrature point (``WeakForm.volume``; pure
+        torch, runs under vmap/jacfwd)."""
+        ns = len(self.kinetics.species)
+        uc, guc, upc = u[:ns], gu[:ns], up[:ns]
+        R = self.kinetics(uc)
+        fval_c = (uc - upc) / theta["dt"] - R
+        if not self.gmpnp:
+            return fval_c, guc
+        z, scale_vol, c0, steric_clip = self._tensors(u.device)
+        P = ns
+        fgrad_c = guc + z[:, None] * uc[:, None] * gu[P][None, :]
+        denom = 1.0 - torch.sum(scale_vol * uc)
+        if self.steric_clip:
+            # torch.maximum splits the derivative 0.5/0.5 at a tie, as
+            # jnp.maximum does (torch.clamp_min would give 1/0)
+            denom = torch.maximum(denom, steric_clip)
+        common = torch.einsum("j,jd->d", scale_vol, guc)
+        fgrad_c = fgrad_c + (uc / denom)[:, None] * common[None, :]
+        hyd = (self.w_cat * u[self.cat_index] * self.C0_cat
+               + self.w_H * u[self.proton_index] * self.C0_H) * 1.0e-3
+        eps = self.eps_rel * (55.0 - hyd) / 55.0 + 6.0 * hyd / 55.0
+        fval_p = self.q * torch.sum(z * c0 * uc)
+        fgrad_p = -eps * gu[P]
+        fval = torch.cat([fval_c, fval_p[None]])
+        fgrad = torch.cat([fgrad_c, fgrad_p[None, :]])
+        return fval, fgrad
+
+    def warm(self, device) -> None:
+        """Make ``volume``'s tensors and ``constants`` on ``device`` now
+        (``build``), not inside the first call."""
+        self._tensors(device)
+        self.constants(device)
+
+    def _tensors(self, device):
+        """z, scale_vol, c0 and steric_clip as f64 tensors on ``device``."""
+        key = ("tensors", str(torch.device(device)))
+        if key not in self._on_device:
+            f64 = dict(dtype=torch.float64, device=device)
+            self._on_device[key] = tuple(
+                torch.as_tensor(v, **f64) for v in (
+                    self.z, self.scale_vol, self.kinetics.c0,
+                    self.steric_clip))
+        return self._on_device[key]
+
+    def pack(self) -> tuple:
+        """The constants as the kernel reads them
+        (``ops.pore_residual.pack_constants``)."""
+        species = self.kinetics.species
+        idx = {s: i for i, s in enumerate(species)}
+        k = self.kinetics.rates
+        c0 = self.kinetics.c0
+        return pack_constants(dict(
+            f=self.n_fields, ns=len(species), gmpnp=int(self.gmpnp),
+            clip_on=int(bool(self.steric_clip)), H=idx.get("H", -1),
+            OH=idx["OH"], HCO3=idx["HCO3"], CO32=idx["CO32"],
+            CO2=idx["CO2"], cat=self.cat_index, proton=self.proton_index,
+            kw1=k.kw1, kw2=k.kw2, ka1=k.ka1, ka2=k.ka2, kb1=k.kb1,
+            kb2=k.kb2, q=self.q, steric_clip=self.steric_clip,
+            w_cat=self.w_cat, C0_cat=self.C0_cat, w_H=self.w_H,
+            C0_H=self.C0_H, eps_rel=self.eps_rel, z=self.z,
+            scale_vol=self.scale_vol, c0=c0, scale_R=self.kinetics.scale_R,
+            zc0=tuple(a * b for a, b in zip(self.z, c0))))
+
+    def constants(self, device) -> torch.Tensor:
+        """``pack()`` as an f64 tensor on ``device``."""
+        key = ("packed", str(torch.device(device)))
+        if key not in self._on_device:
+            self._on_device[key] = torch.tensor(
+                self.pack(), dtype=torch.float64, device=device)
+        return self._on_device[key]
 
 
 @dataclass
@@ -359,11 +478,6 @@ def build(cfg: Pore3DConfig, device="cuda") -> Pore3DProgram:
         cfg.L, params.rate_constants)
 
     q = (nat.F ** 2 * cfg.L ** 2) / (nat.eps_0 * nat.R * sysp.T)
-    scale_vol = torch.as_tensor(
-        [params.a(s) ** 3 * bulk_conc[s] * nat.N_A for s in species], **f64)
-    z = torch.as_tensor([params.z(s) for s in species], **f64)
-    c0 = torch.as_tensor([bulk_conc[s] for s in species], **f64)
-    steric_clip = torch.as_tensor(cfg.steric_clip, **f64)
     thermal_voltage = nat.k_B * sysp.T / nat.e_0
 
     J_pref = {s: cfg.L / (diff_coeff_eff[s] * bulk_conc[s]) for s in species}
@@ -398,29 +512,6 @@ def build(cfg: Pore3DConfig, device="cuda") -> Pore3DProgram:
         eps_rel = nat.eps_rel
         cat_i = idx[cfg.cation]
 
-    # per-quadrature-point integrand: pure torch (runs under vmap/jacfwd)
-    def volume(u, gu, up, x, theta):
-        uc, guc, upc = u[:ns], gu[:ns], up[:ns]
-        R = kin(uc)
-        fval_c = (uc - upc) / theta["dt"] - R
-        if not gmpnp:
-            return fval_c, guc
-        fgrad_c = guc + z[:, None] * uc[:, None] * gu[P][None, :]
-        denom = 1.0 - torch.sum(scale_vol * uc)
-        if cfg.steric_clip:
-            # torch.maximum splits the derivative 0.5/0.5 at a tie, as
-            # jnp.maximum does (torch.clamp_min would give 1/0)
-            denom = torch.maximum(denom, steric_clip)
-        common = torch.einsum("j,jd->d", scale_vol, guc)
-        fgrad_c = fgrad_c + (uc / denom)[:, None] * common[None, :]
-        hyd = (w_cat * u[cat_i] * C0_cat + w_H * u[0] * C0_H) * 1.0e-3
-        eps = eps_rel * (55.0 - hyd) / 55.0 + 6.0 * hyd / 55.0
-        fval_p = q * torch.sum(z * c0 * uc)
-        fgrad_p = -eps * gu[P]
-        fval = torch.cat([fval_c, fval_p[None]])
-        fgrad = torch.cat([fgrad_c, fgrad_p[None, :]])
-        return fval, fgrad
-
     boundary = {}
     if not gmpnp or not cfg.faithful:
         wall_g = torch.zeros(nf, **f64)
@@ -442,7 +533,18 @@ def build(cfg: Pore3DConfig, device="cuda") -> Pore3DProgram:
 
         boundary = {S2: wall, S3: exit_}
 
-    form = WeakForm(nf, volume, boundary=boundary)
+    # the per-quadrature-point integrand, which the element kernel also
+    # evaluates from the spec's constants on CUDA tensors
+    spec = PoreVolumeSpec(
+        n_fields=nf, kinetics=kin, gmpnp=gmpnp,
+        z=tuple(params.z(s) for s in species),
+        scale_vol=tuple(params.a(s) ** 3 * bulk_conc[s] * nat.N_A
+                        for s in species),
+        q=q, steric_clip=cfg.steric_clip,
+        **(dict(w_cat=w_cat, C0_cat=C0_cat, w_H=w_H, C0_H=C0_H,
+                eps_rel=eps_rel, cat_index=cat_i) if gmpnp else {}))
+    spec.warm(device)
+    form = WeakForm(nf, spec.volume, boundary=boundary, spec=spec)
 
     mesh = _load_pore_mesh(cfg)
     space = FemSpace.build(mesh, nf, quad_degree=cfg.quad_degree,

@@ -20,6 +20,12 @@ Kernels:
   reference's guards (``csrc/block_inv.cu``) — the counterpart of
   ``gmpnp_tpu/solve/smallblock.py::block_inv``: the 1D cyclic reduction,
   the slab and block-Jacobi equilibrations, AMG and the sharded diagonal.
+- pore_residual: the element residuals of the 3D pore's volume form on P1
+  tetrahedra (``csrc/pore_residual.cu``) — the counterpart of the jnp
+  element loop of ``gmpnp_tpu/fem/assembly.py::FemSpace.residual``:
+  ``FemSpace.residual`` of a form that carries a
+  ``models.pore_3d.PoreVolumeSpec``, on CUDA tensors (over lanes through
+  the custom op's vmap rule).
 
 ``COUNTERS`` maps each kernel's name to its (``LAUNCHES``,
 ``SHAPE_LAUNCHES``): launches per dtype and per shape, counted where the
@@ -31,6 +37,10 @@ from gmpnp_tpu_torch.ops.block_inv import SHAPE_LAUNCHES as _BLOCK_INV_SHAPES
 from gmpnp_tpu_torch.ops.block_inv import block_inv, block_inv_reference
 from gmpnp_tpu_torch.ops.ell_spmv import (
     LAUNCHES, SHAPE_LAUNCHES, ell_spmv, ell_spmv_reference)
+from gmpnp_tpu_torch.ops.pore_residual import LAUNCHES as _PORE_LAUNCHES
+from gmpnp_tpu_torch.ops.pore_residual import SHAPE_LAUNCHES as _PORE_SHAPES
+from gmpnp_tpu_torch.ops.pore_residual import (
+    pore_residual, pore_residual_reference)
 from gmpnp_tpu_torch.ops.segment_sum import LAUNCHES as _SEGMENT_LAUNCHES
 from gmpnp_tpu_torch.ops.segment_sum import SHAPE_LAUNCHES as _SEGMENT_SHAPES
 from gmpnp_tpu_torch.ops.segment_sum import (
@@ -40,8 +50,10 @@ COUNTERS = {
     "ell_spmv": (LAUNCHES, SHAPE_LAUNCHES),
     "segment_sum": (_SEGMENT_LAUNCHES, _SEGMENT_SHAPES),
     "block_inv": (_BLOCK_INV_LAUNCHES, _BLOCK_INV_SHAPES),
+    "pore_residual": (_PORE_LAUNCHES, _PORE_SHAPES),
 }
 
 __all__ = ["COUNTERS", "LAUNCHES", "SHAPE_LAUNCHES", "block_inv",
            "block_inv_reference", "ell_spmv", "ell_spmv_reference",
-           "segment_sum", "segment_sum_op", "segment_sum_reference"]
+           "pore_residual", "pore_residual_reference", "segment_sum",
+           "segment_sum_op", "segment_sum_reference"]

@@ -21,7 +21,7 @@ import subprocess
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(_PKG)
 SOURCES = tuple(os.path.join(_PKG, "csrc", name) for name in (
-    "ell_spmv.cu", "segment_sum.cu", "block_inv.cu"))
+    "ell_spmv.cu", "segment_sum.cu", "block_inv.cu", "pore_residual.cu"))
 BUILD_DIR = os.path.join(_REPO, "build", "torch_kernels")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: flags of each source's compile (-Xptxas -v: registers, shared memory and
@@ -32,7 +32,13 @@ LINK_FLAGS = (*_ARCH, "-shared")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # (name, restype, argtypes) of every C entry point
-_SIGNATURES = tuple(
+_SIGNATURES = (
+    # u, u_prev, dt_lanes, dt_value, cells, gradN, vols, Nq, wq, consts,
+    # out, n_cells, Q, f, lanes, lane_state, lane_out, stream
+    ("pore_volume_residual_f64", ctypes.c_int,
+     [_P] * 3 + [ctypes.c_double] + [_P] * 7 + [_LL, _I, _I, _I, _LL, _LL,
+                                               _P]),
+) + tuple(
     (f"{kernel}_{t}", ctypes.c_int, argtypes)
     for kernel, argtypes in (
         # flat, adj, x, y, N, K, f, tile, mode, lanes, lane_stride, stream

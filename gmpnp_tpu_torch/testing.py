@@ -151,3 +151,20 @@ def edge_segment_tables(rng: np.random.Generator, device=None):
     return tuple(torch.as_tensor(t, dtype=torch.int64, device=device)
                  for t in (np.argsort(dest, kind="stable"), end - counts,
                            end))
+
+
+def pore_states(prog, seed: int, scale: float = 1.0):
+    """Seeded states (u, u_prev) of a pore program (``models.pore_3d``), on
+    its device, for the element-residual kernel's checks: concentrations
+    1 + 0.1 N(0, 1), the GMPNP potential 0.5 N(0, 1); ``scale`` multiplies
+    u's concentrations (60 puts the steric denominator under its clip)."""
+    rng = np.random.default_rng(seed)
+    N, f = prog.space.num_vertices, prog.space.n_fields
+    ns = len(prog.config.species)
+    u = 1.0 + 0.1 * rng.normal(size=(N, f))
+    up = 1.0 + 0.1 * rng.normal(size=(N, f))
+    u[:, :ns] *= scale
+    u[:, ns:] = 0.5 * rng.normal(size=(N, f - ns))
+    up[:, ns:] = 0.5 * rng.normal(size=(N, f - ns))
+    return (torch.as_tensor(u, device=prog.device),
+            torch.as_tensor(up, device=prog.device))

@@ -1,10 +1,11 @@
 """The port on a CUDA card: each kernel against its plain version (the
-block-ELL matvec, the sorted-segment sum and the batched block inverse,
-bitwise where the kernel's rounding is the plain version's), the 1D
-cyclic reduction on the card against the CPU, a short transient on the
-card against the same transient on the CPU, and the Krylov fallbacks: the
-AMG Galerkin product and the SSOR preconditioner bitwise repeatable on the
-card, and the four Krylov solves card against CPU.
+block-ELL matvec, the sorted-segment sum, the batched block inverse and
+the pore's element residuals, bitwise where the kernel's rounding is the
+plain version's), the 1D cyclic reduction on the card against the CPU, a
+short transient on the card against the same transient on the CPU, and
+the Krylov fallbacks: the AMG Galerkin product and the SSOR
+preconditioner bitwise repeatable on the card, and the four Krylov solves
+card against CPU.
 
 These tests need a card and skip without one.  They import neither jax nor
 gmpnp_tpu, so they run on a machine that has only PyTorch:
@@ -12,7 +13,8 @@ gmpnp_tpu, so they run on a machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 
 Tolerances: the kernel in f32 1e-5 and in f64 1e-12 relative L2 (another
-summation order); the CR factor + apply in f64 1e-12 and in f32 1e-5
+summation order; the pore residual kernel per field, also FMA
+contraction); the CR factor + apply in f64 1e-12 and in f32 1e-5
 (another summation order in the small matmuls); card vs CPU states 1e-6
 relative L2 (the f32-chord band: the chord directions are f32 GMRES
 solves); Krylov solves card vs CPU: the same converged flag, iterations
@@ -453,3 +455,161 @@ def test_block_inv_kernel_ragged_batches(cuda_device, f, dtype):
         nan[-1, f - 1, 0] = float("nan")
         assert torch.equal(torch.isnan(block_inv(nan)),
                            torch.isnan(block_inv_reference(nan)))
+
+
+_PORES = {}
+
+
+def _pore(physics, mesh, device):
+    """A pore program on the card: the L=50 nm, R=5 nm pore (mesh None)
+    or the (2, 10) mesh of the default pore; built once per test run."""
+    from gmpnp_tpu_torch.models import pore_3d
+
+    key = (physics, mesh)
+    if key not in _PORES:
+        kw = ({"L": 50e-9, "R": 5e-9} if mesh is None
+              else {"mesh_resolution": mesh})
+        _PORES[key] = pore_3d.build(
+            pore_3d.Pore3DConfig(physics=physics, **kw), device=device)
+    return _PORES[key]
+
+
+def _pore_call(prog, seed, scale=1.0):
+    """(u, u_prev, dt, tables) of a pore residual call at seeded states."""
+    from gmpnp_tpu_torch.testing import pore_states
+
+    u, up = pore_states(prog, seed, scale)
+    d = prog.space.dev
+    dt = prog._theta_of_carry((u, 0.0), 0)["dt"]
+    return u, up, dt, (d["cells"], d["gradN"], d["vols"], d["Nq"], d["wq"])
+
+
+def _per_field_rel(a, b):
+    f = b.shape[-1]
+    a, b = a.reshape(-1, f), b.reshape(-1, f)
+    return max(float((a[:, i] - b[:, i]).norm() / b[:, i].norm())
+               for i in range(f))
+
+
+# the pore residual kernel: the L=50 nm, R=5 nm pore and the (2, 10) mesh,
+# GMPNP (f=9) and reaction-diffusion (f=7), the steric denominator over
+# its clip (scale 1) and under it (scale 60)
+@pytest.mark.parametrize("scale", [1.0, 60.0])
+@pytest.mark.parametrize("mesh", [None, (2, 10)], ids=["L50R5", "2x10"])
+@pytest.mark.parametrize("physics", ["GMPNP", "rxn_diff"])
+def test_pore_residual_kernel_matches_plain_version(cuda_device, physics,
+                                                    mesh, scale):
+    from gmpnp_tpu_torch.fem import WeakForm
+    from gmpnp_tpu_torch.ops import (COUNTERS, pore_residual,
+                                     pore_residual_reference)
+
+    prog = _pore(physics, mesh, cuda_device)
+    sp, form = prog.space, prog.form
+    u, up, dt, tables = _pore_call(prog, 11, scale)
+    launches = COUNTERS["pore_residual"][0]
+    n0 = launches[torch.float64]
+    got = pore_residual(u, up, dt, *tables, form.spec)
+    again = pore_residual(u, up, dt, *tables, form.spec)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(device=cuda_device)
+    with torch.cuda.stream(side):
+        on_side = pore_residual(u, up, dt, *tables, form.spec)
+    side.synchronize()
+    assert launches[torch.float64] == n0 + 3
+    assert torch.equal(got, again) and torch.equal(got, on_side)
+    ref = pore_residual_reference(u, up, dt, *tables, form.spec)
+    assert _per_field_rel(got, ref) <= 1e-12
+    # the assembled residual: the kernel's route against the vmapped
+    # element loop's (the same form without the spec)
+    theta = prog._theta_of_carry((u, 0.0), 0)
+    bare = WeakForm(form.n_fields, form.volume, boundary=form.boundary)
+    r = sp.residual(form, u, up, theta)
+    assert launches[torch.float64] == n0 + 4
+    assert _per_field_rel(r, sp.residual(bare, u, up, theta)) <= 1e-12
+
+
+@pytest.mark.parametrize("physics", ["GMPNP", "rxn_diff"])
+def test_pore_residual_kernel_lanes_bitwise_per_lane(cuda_device, physics):
+    from gmpnp_tpu_torch.ops import COUNTERS, pore_residual
+
+    prog = _pore(physics, None, cuda_device)
+    spec = prog.form.spec
+    calls = [_pore_call(prog, s) for s in (21, 22, 23)]
+    U = torch.stack([c[0] for c in calls])
+    UP = torch.stack([c[1] for c in calls])
+    dt, tables = calls[0][2], calls[0][3]
+    dts = torch.tensor([dt, 0.5 * dt, 0.25 * dt], dtype=torch.float64,
+                       device=cuda_device)
+    launches = COUNTERS["pore_residual"][0]
+    # dt per lane on the card, then one host scalar for every lane
+    for lane_dt, dim in ((dts, 0), (dt, None)):
+        one = torch.stack([pore_residual(
+            U[v], UP[v], lane_dt if dim is None else lane_dt[v], *tables,
+            spec) for v in range(3)])
+        n0 = launches[torch.float64]
+        lanes = torch.func.vmap(
+            lambda a, b, t: pore_residual(a, b, t, *tables, spec),
+            in_dims=(0, 0, dim))(U, UP, lane_dt)
+        torch.cuda.synchronize()
+        assert launches[torch.float64] == n0 + 1
+        assert torch.equal(lanes, one)
+    # FemSpace.residual_lanes: one launch for the three lanes
+    from gmpnp_tpu_torch.solve.timeloop import stack_lane_theta
+
+    theta = stack_lane_theta(
+        [dict(prog._theta_of_carry((U[v], 0.0), 0), dt=dt * 0.5 ** v)
+         for v in range(3)], cuda_device)
+    n0 = launches[torch.float64]
+    prog.space.residual_lanes(prog.form, U, UP, theta)
+    assert launches[torch.float64] == n0 + 1
+
+
+# ragged element counts: every position of the last element in its warp
+# (3 a warp at f=9, 4 at f=7) and block (12 and 16 a block)
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 5, 11, 12, 13, 16, 17, 97, 1001,
+                               11519])
+def test_pore_residual_kernel_ragged_element_counts(cuda_device, C):
+    from gmpnp_tpu_torch.ops import pore_residual, pore_residual_reference
+
+    for physics in ("GMPNP", "rxn_diff"):
+        prog = _pore(physics, None, cuda_device)
+        u, up, dt, tables = _pore_call(prog, C)
+        lo = (prog.space.cells.shape[0] - C) // 2
+        part = tuple(t[lo:lo + C] for t in tables[:3]) + tables[3:]
+        got = pore_residual(u, up, dt, *part, prog.form.spec)
+        torch.cuda.synchronize()
+        assert got.shape == (C, 4, prog.space.n_fields)
+        assert torch.equal(got, pore_residual(u, up, dt, *part,
+                                              prog.form.spec))
+        ref = pore_residual_reference(u, up, dt, *part, prog.form.spec)
+        assert _per_field_rel(got, ref) <= 1e-12
+
+
+def test_pore_residual_counter_on_the_paths(cuda_device, monkeypatch):
+    """One launch per FemSpace.residual call of a carried pore step; none
+    in an EDL step."""
+    from gmpnp_tpu_torch.fem.assembly import FemSpace
+    from gmpnp_tpu_torch.models import edl_1d, pore_3d
+    from gmpnp_tpu_torch.ops import COUNTERS
+
+    calls = [0]
+    residual = FemSpace.residual
+
+    def counted(self, *args, **kw):
+        calls[0] += 1
+        return residual(self, *args, **kw)
+
+    monkeypatch.setattr(FemSpace, "residual", counted)
+    launches = COUNTERS["pore_residual"][0]
+    cfg = pore_3d.Pore3DConfig(mesh_resolution=(2, 10))
+    cfg = dataclasses.replace(cfg, linear=dataclasses.replace(
+        cfg.linear, refresh="carried"))
+    n0 = launches[torch.float64]
+    _, _, stats, _ = pore_3d.build(cfg, device=cuda_device).run(n_steps=3)
+    assert np.asarray(stats.converged).all()
+    assert calls[0] > 0 and launches[torch.float64] - n0 == calls[0]
+    calls[0] = 0
+    n0 = launches[torch.float64]
+    edl_1d.build(edl_1d.EDL1DConfig(L_n=1e-6), device=cuda_device).run(
+        n_steps=2)
+    assert calls[0] > 0 and launches[torch.float64] == n0
