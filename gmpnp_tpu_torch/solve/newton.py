@@ -5,7 +5,9 @@ Replicates dolfin::NewtonSolver as configured by the reference's
 
 - convergence test on the l2 norm of the BC-applied residual:
   converged iff ||r|| < atol  OR  ||r|| < rtol * ||r0||
-  (checked on the initial residual and after every update);
+  (checked on the initial residual and after every update), r0 the
+  residual at the step's start state, also where the iteration starts
+  from a state predicted from it (``start_residual``);
 - update u <- u - relaxation * du with J du = r;
 - hard cap on iterations (`maximum_iterations`), non-convergence reported,
   not raised (the time loop decides what to do).
@@ -19,7 +21,7 @@ residual norm back to the host once, in a ``newton.iter`` span
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +64,7 @@ def newton_solve(
     du_max: float = 1.0e6,
     stall_atol: float = None,
     stall_iters: int = 4,
+    start_residual: Optional[Callable[[], torch.Tensor]] = None,
 ) -> NewtonResult:
     """Solve F(u) = 0.
 
@@ -84,12 +87,22 @@ def newton_solve(
     stall_atol : stagnation acceptance (None = off): exit converged when the
         best residual has not improved by >5% for ``stall_iters``
         consecutive iterations and is below stall_atol.
+    start_residual : () -> the residual at the step's start state, where u0
+        is a state predicted from it: rtol is then measured against its
+        norm, as the step's guarantee states, and not against u0's.  It is
+        evaluated once, and only when a norm at or above atol is tested.
     """
     r = residual_fn(u0)
     n0 = to_host(_l2(r))
+    n_ref = n0 if start_residual is None else None
 
     def converged(rn):
-        return (rn < atol) or (rn < rtol * n0)
+        nonlocal n_ref
+        if rn < atol:
+            return True
+        if n_ref is None:
+            n_ref = to_host(_l2(start_residual()))
+        return rn < rtol * n_ref
 
     carry_r = carry_residual and backtracking == 0
     stall = stall_atol is not None

@@ -564,7 +564,9 @@ def make_carried_step(
     a chord iteration certified on the true f64 residual, with a budget of
     ``linear_cfg.chord_max_iter`` iterations, started from the decay-scaled
     extrapolation ``u_prev + clip(rho*dt/dt_prev, 0, 1.5) * du`` when
-    ``chord_predict``.  The carried factorization is the slab one
+    ``chord_predict`` (its rtol is measured at the safe start, u_prev with
+    its Dirichlet values, as in exact Newton: ``newton_solve``'s
+    ``start_residual``).  The carried factorization is the slab one
     (``kind='slab_direct'``; with ``chord_dtype='f32'`` the chord directions
     come from ``slab_apply_f32``, f32 GMRES whose matvec is the block-ELL
     kernel) or, in 1D (``kind='tridiag_cr'``), the all-f64 CR factorization,
@@ -651,6 +653,7 @@ def make_carried_step(
 
         u0_safe = bc.project(u_prev)
         nrm_du = to_host(torch.linalg.norm(carry.du))
+        start = None
         if linear_cfg.chord_predict:
             # decay-aware extrapolated start for the chord attempt only
             dt = _dt_of(theta, dt_key)
@@ -659,13 +662,17 @@ def make_carried_step(
             ratio = dt / carry.dt_prev if carry.dt_prev > 0 else 0.0
             factor = min(max(rho * ratio, 0.0), 1.5)
             u0_chord = bc.project(u_prev + factor * carry.du)
+            if factor > 0.0:
+                # rtol stays relative to the safe start's residual: a
+                # predicted start that overshoots has the larger one
+                start = lambda: residual(u0_safe)
         else:
             u0_chord = u0_safe
 
         res1 = newton_solve(
             residual, lin_of(prep), u0_chord,
             max_iter=min(linear_cfg.chord_max_iter, newton_cfg.max_iter),
-            **_newton_kwargs(newton_cfg))
+            start_residual=start, **_newton_kwargs(newton_cfg))
         if res1.converged:
             res, prep_used = res1, prep
         else:
