@@ -49,8 +49,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    vmap): within 1e-12 per field of the plain version, bitwise repeatable,
    one launch a call, each lane bitwise its one-lane launch; times as
    above, with the torch.func element loop the kernel replaced as the
-   yardstick and a one-element launch as the floor;
-4. the paths, each with every launch count (all four kernels) set to 0
+   yardstick and a one-element launch as the floor.  Then the pores'
+   Sechenov value (GMPNP (2,501, 9), reaction-diffusion (2,501, 7)): its
+   four medians and the value bitwise the plain version's (four
+   ``torch.sort``s and the scalar operations), bitwise repeatable, one
+   launch a call; times as above beside the plain version's, no library
+   call, a one-row launch as the floor;
+4. the paths, each with every launch count (all five kernels) set to 0
    before it and read after it; per-step wall time, Newton and linear
    iterations, host syncs and kernel launches; outputs present and finite;
    every model path launched the segment-sum and ``block_inv`` kernels:
@@ -658,6 +663,12 @@ PORE_RESIDUAL_RECORDS = [
     ("pore_residual_f64_gmpnp_lanes", "GMPNP", LANES,
      "sweep pore_3d batched"),
 ]
+#: the Sechenov value at the pores' shapes (the L=50 nm, R=5 nm pore, f64):
+#: (record name, physics, phase-4 path)
+SECHENOV_RECORDS = [
+    ("sechenov_f64_gmpnp", "GMPNP", "pore_3d carried"),
+    ("sechenov_f64_rxn_diff_3d", "rxn_diff", "rxn_diff_3d carried"),
+]
 HOT_SOURCES = {
     "segment_sum": ("gmpnp_tpu_torch/csrc/segment_sum.cu",
                     "gmpnp_tpu/fem/assembly.py:167"),
@@ -665,6 +676,8 @@ HOT_SOURCES = {
                   "gmpnp_tpu/solve/smallblock.py:46"),
     "pore_residual": ("gmpnp_tpu_torch/csrc/pore_residual.cu",
                       "gmpnp_tpu/fem/assembly.py:332"),
+    "sechenov": ("gmpnp_tpu_torch/csrc/sechenov.cu",
+                 "gmpnp_tpu/models/pore_3d.py:203"),
 }
 
 
@@ -804,6 +817,67 @@ def check_pore_residual(dev, rng, library=True):
     return records
 
 
+def sechenov_bound(N):
+    """The four columns read once and the value written once over the
+    memory rate (the selection's compares are not counted: a few per value
+    and pass)."""
+    nbytes = 4 * N * 8 + 8
+    return {"bytes": nbytes, "bound_us": nbytes / HBM_BYTES_PER_S * 1e6,
+            "bound_by": "bytes"}
+
+
+def check_sechenov(dev, rng):
+    """Phase 3, the pore's Sechenov value: at the pores' shapes the
+    kernel's four medians and its value bitwise the plain version's on the
+    card (four torch.sorts and the scalar operations the kernel replaced),
+    bitwise repeatable, one launch a call; then the times, the plain
+    version beside them.  Returns the timed records keyed by name."""
+    from gmpnp_tpu_torch.models import pore_3d
+    from gmpnp_tpu_torch.ops import sechenov_co2, sechenov_co2_reference
+    from gmpnp_tpu_torch.ops.sechenov import median
+    from gmpnp_tpu_torch.testing import pore_states
+
+    def bits(t):
+        return t.reshape(-1).cpu().view(torch.int64)
+
+    records = {}
+    for name, physics, path in SECHENOV_RECORDS:
+        prog = pore_3d.build(
+            pore_3d.Pore3DConfig(physics=physics, **PORE_KW), device=dev)
+        c = prog.sechenov
+        u, _ = pore_states(prog, int(rng.integers(0, 2 ** 31)))
+        N, f = u.shape
+        med = torch.empty(4, dtype=torch.float64, device=dev)
+        n0 = sum(_launch_counts("sechenov").values())
+        got = sechenov_co2(u, c, medians=med)
+        again = sechenov_co2(u, c)
+        launched = sum(_launch_counts("sechenov").values()) - n0
+        want_med = torch.stack([median(u[:, i]) for i in c.fields])
+        want = sechenov_co2_reference(u, c)
+        torch.cuda.synchronize()
+        ok = {"medians_bitwise": torch.equal(bits(med), bits(want_med)),
+              "value_bitwise": torch.equal(bits(got), bits(want)),
+              "bitwise_repeatable": torch.equal(bits(got), bits(again)),
+              "one_launch_a_call": launched == 2}
+        line = (f"kernel sechenov {name} {N}x{f} f64: {ok} "
+                f"value={float(got)!r} medians={med.tolist()!r}")
+        print(line, flush=True)
+        if not all(ok.values()):
+            raise AssertionError(line)
+        bound = sechenov_bound(N)
+        copies = _copies(u)
+        us = [u] + [u.clone() for _ in range(copies - 1)]
+        rec = hot_times(
+            f"sechenov {name} {N}x{f}", bound["bytes"], bound,
+            lambda i: sechenov_co2(us[i], c),
+            lambda i: sechenov_co2_reference(us[i], c), None, copies)
+        records[name] = {
+            "shape": [N, f], "dtype": "float64", "path": path,
+            "launch_key": _shape_key((N, f, "float64")),
+            "library": None, **ok, **rec}
+    return records
+
+
 def _launch_counts(kernel):
     """A kernel's launches per dtype (``ops.COUNTERS``)."""
     from gmpnp_tpu_torch import ops
@@ -848,7 +922,8 @@ def hot_times(label, nbytes, bound, kernel, plain, library, copies):
            "library_ms": None, "library_us": None, "library_us_cold": None}
     try:
         if library is None:
-            raise LookupError("not timed (--kernel-times)")
+            raise LookupError("not timed (--kernel-times, or no library "
+                              "call computes it)")
         rec["library_ms"], rec["library_us"], rec["library_us_cold"] = (
             turn(library))
     except Exception as e:  # the yardstick may be refused; the run goes on
@@ -1141,8 +1216,13 @@ def launch_floors(dev):
     one = (t["cells"][:1], t["gradN"][:1], t["vols"][:1], t["Nq"], t["wq"])
     floors["pore_residual", torch.float64] = graph_us(
         [lambda: pore_residual(u, u, 1.0, *one, prog.form.spec)])
+    if hasattr(prog, "sechenov"):   # not in checkouts before it
+        from gmpnp_tpu_torch.ops import sechenov_co2
+
+        floors["sechenov", torch.float64] = graph_us(
+            [lambda: sechenov_co2(u[:1], prog.sechenov)])
     print(f"kernel launch floors (segment_sum one value, block_inv one 1x1 "
-          f"block, pore_residual one element): "
+          f"block, pore_residual one element, sechenov one row): "
           f"{ {f'{k} {t}': v for (k, t), v in floors.items()} }", flush=True)
     return floors
 
@@ -1157,6 +1237,9 @@ def check_hot_kernels(dev, library=True):
     records = check_segment_sum(dev, spaces, rng, library)
     records.update(check_block_inv(dev, spaces, rng, library))
     records.update(check_pore_residual(dev, rng, library))
+    if hasattr(importlib.import_module("gmpnp_tpu_torch.ops"),
+               "sechenov_co2"):   # not in checkouts before it
+        records.update(check_sechenov(dev, rng))
     if hasattr(importlib.import_module("gmpnp_tpu_torch.testing"),
                "edge_segment_tables"):   # not in checkouts before it
         check_segment_sum_edges(dev, rng)

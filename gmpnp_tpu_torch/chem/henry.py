@@ -49,6 +49,18 @@ def henry_K_CO2(temp: Scalar):
     return xp.exp(lnK)
 
 
+def sechenov_h_CO2(temp: Scalar, params: ParameterSet = DEFAULT_PARAMS):
+    """h_CO2(T) = h_CO2_0 + h_CO2_T * (T - 298.15), m^3/kmol."""
+    return params.sechenov_CO2_0 + params.sechenov_CO2_T * (temp - 298.15)
+
+
+def saturation_prefactor(temp: float, fugacity_CO2: float) -> float:
+    """fugacity_CO2 * K_H * 1000 (mol/m^3), the factor of 10^(-sechenov) in
+    ``co2_saturation_conc``, as a host float computed as it computes it on
+    tensors."""
+    return fugacity_CO2 * float(henry_K_CO2(temp)) * 1000.0
+
+
 def co2_saturation_conc(
     temp: Scalar,
     fugacity_CO2: Scalar,
@@ -73,7 +85,7 @@ def co2_saturation_conc(
     if conc_ions is None:
         conc_ions = {}
     xp = _xp(temp, fugacity_CO2, *conc_ions.values())
-    h_CO2 = params.sechenov_CO2_0 + params.sechenov_CO2_T * (temp - 298.15)
+    h_CO2 = sechenov_h_CO2(temp, params)
 
     # numpy keeps the reference's 0-d array start; on tensors a Python 0.0
     # adopts the first term's dtype and device

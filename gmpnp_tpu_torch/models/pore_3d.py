@@ -11,7 +11,7 @@ Port of ``gmpnp_tpu/models/pore_3d.py``:
 
 The Sechenov-corrected CO2 entry Dirichlet value is recomputed every step
 from median ion concentrations (3D/MPNP_CO2ER_pore.py:815-838) on the
-device.
+device, in one kernel launch on the card (``ops.sechenov``).
 
 **Orphaned-flux quirk.**  ``faithful=True`` (default) reproduces the
 published GMPNP script, whose boundary-flux terms are no-op statements, so
@@ -33,7 +33,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from gmpnp_tpu_torch.chem.henry import co2_saturation_conc
+from gmpnp_tpu_torch.chem.henry import saturation_prefactor, sechenov_h_CO2
 from gmpnp_tpu_torch.chem.reactions import BufferKinetics
 from gmpnp_tpu_torch.constants import ParameterSet
 from gmpnp_tpu_torch.fem import DirichletBC, FemSpace, WeakForm
@@ -52,6 +52,9 @@ from gmpnp_tpu_torch.mesh import (
 from gmpnp_tpu_torch.models import base
 from gmpnp_tpu_torch.ops.pore_residual import (
     MAX_FIELDS, MIN_FIELDS, pack_constants)
+# median: the medians' midpoint rule, importable from here as before
+from gmpnp_tpu_torch.ops.sechenov import (  # noqa: F401
+    SechenovConstants, median, sechenov_co2)
 from gmpnp_tpu_torch.solve.timeloop import (
     LinearConfig,
     NewtonConfig,
@@ -147,15 +150,6 @@ def _load_pore_mesh(cfg: Pore3DConfig):
                   "n_layers": cfg.mesh_resolution[1]}
         mesh = cylinder_mesh(cfg.L, cfg.R, **kw)
     return pore_boundary_markers(mesh, cfg.L, cfg.R)
-
-
-def median(x: torch.Tensor) -> torch.Tensor:
-    """Median of a 1-D tensor that averages the two middle values on even
-    length — ``jnp.median``'s 'midpoint' rule, (lo + hi) * 0.5.
-    (``torch.median`` returns the lower middle value instead.)"""
-    s = torch.sort(x).values
-    n = s.shape[0]
-    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
 
 
 @dataclass(frozen=True)
@@ -296,6 +290,7 @@ class Pore3DProgram:
     s1_verts: np.ndarray
     current_planar: float
     idx: Dict[str, int]
+    sechenov: SechenovConstants
     device: torch.device = torch.device("cpu")
 
     def __post_init__(self):
@@ -303,36 +298,18 @@ class Pore3DProgram:
                                    device=self.device)
 
     def _theta_of_carry(self, carry, i):
-        """Per-step Sechenov CO2 Dirichlet value from the previous solution
-        (ref :815-838; rxn-diff recovers the cation by electroneutrality,
-        3D/rxn_diff_CO2ER_pore.py:556-568) and the step's dt (staged on the
-        first ``dt_first_steps`` steps)."""
+        """Per-step Sechenov CO2 Dirichlet value from the previous solution's
+        field medians (ref :815-838; rxn-diff recovers the cation by
+        electroneutrality, 3D/rxn_diff_CO2ER_pore.py:556-568), one kernel
+        launch on the card (``ops.sechenov_co2``), and the step's dt (staged
+        on the first ``dt_first_steps`` steps)."""
         cfg = self.config
         u, _ = carry
-        idx = self.idx
-        bc0 = self.bulk_conc
-        med = lambda s: median(u[:, idx[s]]) * bc0[s]
-        conc_ions = {
-            "OH": med("OH"), "HCO3": med("HCO3"), "CO32": med("CO32")}
-        if cfg.physics == "GMPNP":
-            conc_ions[cfg.cation] = med(cfg.cation)
-        else:
-            conc_ions[cfg.cation] = (conc_ions["HCO3"]
-                                     + 2 * conc_ions["CO32"]
-                                     + conc_ions["OH"] - med("H"))
-        # the model's own Sechenov table (cations absent from the reference
-        # constant list salt out with h_ion = 0)
-        h = dict(self.h_sechenov)
-        h["CO2_0"] = self.params.sechenov_CO2_0
-        h["CO2_T"] = self.params.sechenov_CO2_T
-        eq_CO2 = co2_saturation_conc(
-            self.params.sys_params.T, self.fugacity_CO2, conc_ions,
-            self.params, h_sechenov=h)
         dt = self.dt_scaled
         if cfg.dt_first_scale != 1.0:
             dt = dt * (cfg.dt_first_scale if int(i) < cfg.dt_first_steps
                        else 1.0)
-        return {"dt": dt, "co2_s1": eq_CO2 / bc0["CO2"]}
+        return {"dt": dt, "co2_s1": sechenov_co2(u, self.sechenov)}
 
     def _bc_of_theta(self, theta):
         return self.bc.set_value(self._s1, self.idx["CO2"], theta["co2_s1"])
@@ -573,6 +550,18 @@ def build(cfg: Pore3DConfig, device="cuda") -> Pore3DProgram:
 
     h_sechenov = {s: params.sechenov_ion.get(s, 0.0)
                   for s in ("OH", "HCO3", "CO32", cfg.cation)}
+    # the Sechenov value's constants, as co2_saturation_conc computes them
+    # (cations absent from the reference constant list salt out with
+    # h_ion = 0); rxn-diff takes the H median for the cation's
+    ions = ("OH", "HCO3", "CO32", cfg.cation)
+    med_fields = ions[:3] + ((cfg.cation,) if gmpnp else ("H",))
+    h_CO2 = sechenov_h_CO2(sysp.T, params)
+    sechenov = SechenovConstants(
+        fields=tuple(idx[s] for s in med_fields),
+        bc0=tuple(bulk_conc[s] for s in med_fields),
+        h=tuple(h_sechenov[s] + h_CO2 for s in ions), gmpnp=gmpnp,
+        A=saturation_prefactor(sysp.T, fugacity_CO2),
+        bc0_CO2=bulk_conc["CO2"])
 
     return Pore3DProgram(
         config=cfg, space=space, form=form, bc=bc, mesh=mesh, params=params,
@@ -582,7 +571,7 @@ def build(cfg: Pore3DConfig, device="cuda") -> Pore3DProgram:
         thermal_voltage=thermal_voltage, eq_conc=eq_conc,
         fugacity_CO2=fugacity_CO2, h_sechenov=h_sechenov,
         s1_verts=s1_verts, current_planar=current_planar, idx=idx,
-        device=device)
+        sechenov=sechenov, device=device)
 
 
 def scale_conc_time(C, grad_c, bulk, tau, D_eff, L):

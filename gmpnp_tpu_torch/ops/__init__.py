@@ -26,6 +26,11 @@ Kernels:
   ``FemSpace.residual`` of a form that carries a
   ``models.pore_3d.PoreVolumeSpec``, on CUDA tensors (over lanes through
   the custom op's vmap rule).
+- sechenov: the 3D pore's per-step Sechenov CO2 Dirichlet value from four
+  exact medians (``csrc/sechenov.cu``) — the counterpart of the
+  ``jnp.median`` and ``co2_saturation_conc`` of
+  ``gmpnp_tpu/models/pore_3d.py``'s ``_theta_of_carry``:
+  ``models.pore_3d.Pore3DProgram._theta_of_carry`` on CUDA tensors.
 
 ``COUNTERS`` maps each kernel's name to its (``LAUNCHES``,
 ``SHAPE_LAUNCHES``): launches per dtype and per shape, counted where the
@@ -41,6 +46,10 @@ from gmpnp_tpu_torch.ops.pore_residual import LAUNCHES as _PORE_LAUNCHES
 from gmpnp_tpu_torch.ops.pore_residual import SHAPE_LAUNCHES as _PORE_SHAPES
 from gmpnp_tpu_torch.ops.pore_residual import (
     pore_residual, pore_residual_reference)
+from gmpnp_tpu_torch.ops.sechenov import LAUNCHES as _SECHENOV_LAUNCHES
+from gmpnp_tpu_torch.ops.sechenov import SHAPE_LAUNCHES as _SECHENOV_SHAPES
+from gmpnp_tpu_torch.ops.sechenov import (
+    SechenovConstants, sechenov_co2, sechenov_co2_reference)
 from gmpnp_tpu_torch.ops.segment_sum import LAUNCHES as _SEGMENT_LAUNCHES
 from gmpnp_tpu_torch.ops.segment_sum import SHAPE_LAUNCHES as _SEGMENT_SHAPES
 from gmpnp_tpu_torch.ops.segment_sum import (
@@ -51,9 +60,11 @@ COUNTERS = {
     "segment_sum": (_SEGMENT_LAUNCHES, _SEGMENT_SHAPES),
     "block_inv": (_BLOCK_INV_LAUNCHES, _BLOCK_INV_SHAPES),
     "pore_residual": (_PORE_LAUNCHES, _PORE_SHAPES),
+    "sechenov": (_SECHENOV_LAUNCHES, _SECHENOV_SHAPES),
 }
 
-__all__ = ["COUNTERS", "LAUNCHES", "SHAPE_LAUNCHES", "block_inv",
-           "block_inv_reference", "ell_spmv", "ell_spmv_reference",
-           "pore_residual", "pore_residual_reference", "segment_sum",
+__all__ = ["COUNTERS", "LAUNCHES", "SHAPE_LAUNCHES", "SechenovConstants",
+           "block_inv", "block_inv_reference", "ell_spmv",
+           "ell_spmv_reference", "pore_residual", "pore_residual_reference",
+           "sechenov_co2", "sechenov_co2_reference", "segment_sum",
            "segment_sum_op", "segment_sum_reference"]

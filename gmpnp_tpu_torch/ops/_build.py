@@ -21,7 +21,8 @@ import subprocess
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(_PKG)
 SOURCES = tuple(os.path.join(_PKG, "csrc", name) for name in (
-    "ell_spmv.cu", "segment_sum.cu", "block_inv.cu", "pore_residual.cu"))
+    "ell_spmv.cu", "segment_sum.cu", "block_inv.cu", "pore_residual.cu",
+    "sechenov.cu"))
 BUILD_DIR = os.path.join(_REPO, "build", "torch_kernels")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: flags of each source's compile (-Xptxas -v: registers, shared memory and
@@ -38,6 +39,9 @@ _SIGNATURES = (
     ("pore_volume_residual_f64", ctypes.c_int,
      [_P] * 3 + [ctypes.c_double] + [_P] * 7 + [_LL, _I, _I, _I, _LL, _LL,
                                                _P]),
+    # u, out, medians, n, f, consts (host doubles), stream
+    ("sechenov_co2_f64", ctypes.c_int,
+     [_P] * 3 + [_LL, _I, ctypes.POINTER(ctypes.c_double), _P]),
 ) + tuple(
     (f"{kernel}_{t}", ctypes.c_int, argtypes)
     for kernel, argtypes in (

@@ -1,7 +1,8 @@
 """The port on a CUDA card: each kernel against its plain version (the
-block-ELL matvec, the sorted-segment sum, the batched block inverse and
-the pore's element residuals, bitwise where the kernel's rounding is the
-plain version's), the 1D cyclic reduction on the card against the CPU, a
+block-ELL matvec, the sorted-segment sum, the batched block inverse, the
+pore's element residuals and its Sechenov value, bitwise where the
+kernel's rounding is the plain version's; a whole carried pore episode
+through the Sechenov kernel bit for bit its plain version's), the 1D cyclic reduction on the card against the CPU, a
 short transient on the card against the same transient on the CPU, and
 the Krylov fallbacks: the AMG Galerkin product and the SSOR
 preconditioner bitwise repeatable on the card, and the four Krylov solves
@@ -613,3 +614,147 @@ def test_pore_residual_counter_on_the_paths(cuda_device, monkeypatch):
     edl_1d.build(edl_1d.EDL1DConfig(L_n=1e-6), device=cuda_device).run(
         n_steps=2)
     assert calls[0] > 0 and launches[torch.float64] == n0
+
+
+_NNAN = np.frombuffer(np.uint64(0xFFF8000000000000).tobytes(), np.float64)[0]
+
+
+def _sechenov_column(kind, N, rng):
+    """One column of a Sechenov kernel check: ``random`` near bulk, heavy
+    ``ties`` (one decimal), ``equal`` (one value), ``negative`` (both
+    signs), ``zeros`` (+0.0 and -0.0 holding the middle ranks) or ``nan``
+    (NaNs of both signs past 32 values, where torch.sort puts -NaN first
+    and +NaN last; +NaN alone below, where it sorts by a bitonic network),
+    once with few NaNs and once with the median among them."""
+    x = 1.0 + 0.1 * rng.normal(size=N)
+    if kind == "ties":
+        x = np.round(x, 1)
+    elif kind == "equal":
+        x = np.full(N, rng.normal())
+    elif kind == "negative":
+        x = rng.normal(size=N) - 0.5
+    elif kind == "zeros":
+        x = rng.normal(size=N)
+        x[rng.random(N) < 0.4] = 0.0
+        x[rng.random(N) < 0.3] = -0.0
+    elif kind in ("nan_few", "nan_many"):
+        share = 0.1 if kind == "nan_few" else 0.6
+        nans = rng.random(N) < share
+        x[nans] = np.nan
+        if N > 32:
+            x[nans & (rng.random(N) < 0.5)] = _NNAN
+    return x
+
+
+def _sechenov_constants(prog, gmpnp):
+    from gmpnp_tpu_torch.ops import SechenovConstants
+
+    c = prog.sechenov
+    return SechenovConstants(fields=c.fields, bc0=c.bc0, h=c.h, gmpnp=gmpnp,
+                             A=c.A, bc0_CO2=c.bc0_CO2)
+
+
+def _f64_bits(t):
+    return t.detach().reshape(-1).cpu().view(torch.int64)
+
+
+# one value, two, the pore's N=2,501 (odd) and 2,502, the 1D mesh's 5,991
+# and 40,000, past the keys staged in shared memory (24,576)
+@pytest.mark.parametrize("N", [1, 2, 2501, 2502, 5991, 40000])
+def test_sechenov_kernel_bitwise_plain_version(cuda_device, N):
+    """The kernel's four medians and its Sechenov value are the plain
+    version's bits on the card (torch.sort and the scalar operations), for
+    both physics, at every kind of column; bitwise repeatable, on a side
+    stream too; one launch a call."""
+    from gmpnp_tpu_torch.ops import (COUNTERS, sechenov_co2,
+                                     sechenov_co2_reference)
+    from gmpnp_tpu_torch.ops.sechenov import median
+
+    prog = _pore("GMPNP", (2, 10), cuda_device)
+    launches = COUNTERS["sechenov"][0]
+    rng = np.random.default_rng(N)
+    for kind in ("random", "ties", "equal", "negative", "zeros", "nan_few",
+                 "nan_many"):
+        cols = [_sechenov_column(kind, N, rng) for _ in range(9)]
+        u = torch.tensor(np.stack(cols, axis=1), device=cuda_device)
+        for gmpnp in (True, False):
+            c = _sechenov_constants(prog, gmpnp)
+            med = torch.empty(4, dtype=torch.float64, device=cuda_device)
+            n0 = launches[torch.float64]
+            got = sechenov_co2(u, c, medians=med)
+            again = sechenov_co2(u, c)
+            side = torch.cuda.Stream(device=cuda_device)
+            with torch.cuda.stream(side):
+                on_side = sechenov_co2(u, c)
+            side.synchronize()
+            torch.cuda.synchronize()
+            assert launches[torch.float64] == n0 + 3
+            want_med = torch.stack([median(u[:, i]) for i in c.fields])
+            want = sechenov_co2_reference(u, c)
+            label = (kind, N, gmpnp, med.tolist(), want_med.tolist(),
+                     float(got), float(want))
+            assert torch.equal(_f64_bits(med), _f64_bits(want_med)), label
+            assert torch.equal(_f64_bits(got), _f64_bits(want)), label
+            for other in (again, on_side):
+                assert torch.equal(_f64_bits(other), _f64_bits(got))
+
+
+def test_sechenov_kernel_refuses_what_it_does_not_take(cuda_device):
+    from gmpnp_tpu_torch.ops import sechenov_co2
+
+    prog = _pore("GMPNP", (2, 10), cuda_device)
+    u = prog.initial_state()
+    with pytest.raises(TypeError, match="float64"):
+        sechenov_co2(u.float(), prog.sechenov)
+    with pytest.raises(ValueError, match="contiguous"):
+        sechenov_co2(u.t().contiguous().t(), prog.sechenov)
+    with pytest.raises(ValueError, match="outside"):
+        sechenov_co2(u[:, :5].contiguous(), prog.sechenov)
+    with pytest.raises(ValueError, match="N, f"):
+        sechenov_co2(u[:0], prog.sechenov)
+
+
+@pytest.mark.parametrize("physics", ["GMPNP", "rxn_diff"])
+def test_sechenov_carried_episode_bitwise_plain_path(cuda_device,
+                                                     monkeypatch, physics):
+    """One whole carried L=50 nm, R=5 nm episode (the benchmark cell's
+    linear settings) through the kernel gives every step's CO2 Dirichlet
+    value, the Newton and Krylov counts and the final state bit for bit as
+    the same episode through the plain version on the card; one launch per
+    _theta_of_carry call."""
+    from gmpnp_tpu_torch.models import pore_3d
+    from gmpnp_tpu_torch.ops import COUNTERS, sechenov_co2_reference
+
+    cfg = pore_3d.Pore3DConfig(physics=physics, L=50e-9, R=5e-9)
+    cfg = dataclasses.replace(cfg, linear=dataclasses.replace(
+        cfg.linear, refresh="carried", chord_dtype="f32"))
+    prog = pore_3d.build(cfg, device=cuda_device)
+    launches = COUNTERS["sechenov"][0]
+    runs = {}
+    for route in ("kernel", "plain"):
+        values = []
+        inner = (pore_3d.sechenov_co2 if route == "kernel"
+                 else sechenov_co2_reference)
+
+        def recorded(u, consts, inner=inner, values=values):
+            out = inner(u, consts)
+            values.append(out)
+            return out
+
+        monkeypatch.setattr(pore_3d, "sechenov_co2", recorded)
+        n0 = launches[torch.float64]
+        _, _, stats, u_final = prog.run(record_full=False)
+        torch.cuda.synchronize()
+        monkeypatch.undo()
+        n = launches[torch.float64] - n0
+        assert n == (len(values) if route == "kernel" else 0)
+        runs[route] = (torch.stack(values), stats, u_final)
+    (kv, ks, ku), (pv, ps, pu) = runs["kernel"], runs["plain"]
+    assert kv.shape[0] >= prog.num_steps
+    assert torch.equal(_f64_bits(kv), _f64_bits(pv))
+    assert np.asarray(ks.converged).all()
+    assert np.array_equal(np.asarray(ks.newton_iters),
+                          np.asarray(ps.newton_iters))
+    assert np.array_equal(np.asarray(ks.linear_iters),
+                          np.asarray(ps.linear_iters))
+    assert torch.equal(_f64_bits(ku), _f64_bits(pu))
