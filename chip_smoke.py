@@ -2843,8 +2843,8 @@ def profile_calls(dev, mesh_resolution=None, reps=5):
     # the lane-batched layers, 3 lanes of the same cold start (the
     # batched sweep's -0.5 / -1.0 / -1.5 V), and the f32 inverse of one
     # slab's 3 blocks as one batched call against one call per block
-    from gmpnp_tpu_torch.solve.slab import (
-        _inv_refined_lanes, slab_apply_lanes, slab_prepare_lanes)
+    from gmpnp_tpu_torch.solve.slab import _inv_refined
+    from gmpnp_tpu_torch.solve.smallblock import lane_by_lane
     from gmpnp_tpu_torch.solve.timeloop import stack_lane_theta
 
     thetas = []
@@ -2856,7 +2856,7 @@ def profile_calls(dev, mesh_resolution=None, reps=5):
                                           lth["co2_s1"])
     Ul = lbc.project(U)
     lell = lbc.apply_to_jacobian(space.jacobian_lanes(form, Ul, U, lth))
-    lprep = slab_prepare_lanes(lell, plan)
+    lprep = slab_prepare(lell, plan)
     lr = lbc.apply_to_residual(space.residual_lanes(form, Ul, U, lth), Ul)
     blocks = lprep.factors.Dinv[:, 0].contiguous()
     calls += [
@@ -2867,16 +2867,15 @@ def profile_calls(dev, mesh_resolution=None, reps=5):
         ("slab_prepare (1 lane)",
          lambda: slab_prepare(ell, plan)),
         ("slab_prepare_lanes (3 lanes)",
-         lambda: slab_prepare_lanes(lell, plan)),
+         lambda: slab_prepare(lell, plan)),
         ("slab_apply_lanes f64 tol 1e-6 (3 lanes)",
-         lambda: slab_apply_lanes(lprep, lr, plan, tol=1e-6,
-                                  max_refine=40)),
+         lambda: slab_apply(lprep, lr, plan, tol=1e-6, max_refine=40)),
         ("torch.linalg.inv of 3 f32 slab blocks, one batched call",
          lambda: torch.linalg.inv(blocks)),
         ("torch.linalg.inv of 3 f32 slab blocks, one call each",
          lambda: [torch.linalg.inv(b) for b in blocks]),
         ("_inv_refined_lanes of 3 f32 slab blocks",
-         lambda: _inv_refined_lanes(blocks)),
+         lambda: lane_by_lane(_inv_refined, True, blocks)),
     ]
     print(f"profile: N={space.num_vertices} K={space.adj.shape[1]} "
           f"S={plan.S} m={plan.m}", flush=True)

@@ -10,7 +10,7 @@ Kernels:
   of the exact slab path, of the 1D ``solve.linear.tridiag_mp_solve`` and
   of the Krylov fallbacks (every AMG level included); over a lane axis
   (one launch for the V lanes of a batched sweep) it is the matvec of
-  ``solve.slab.slab_apply_lanes``.
+  ``solve.slab.slab_apply`` over lanes.
 - segment_sum: the sorted-segment sum of FEM assembly
   (``csrc/segment_sum.cu``) — the counterpart of
   ``gmpnp_tpu/fem/assembly.py::_segment_reduce``: every residual and

@@ -68,6 +68,7 @@ from gmpnp_tpu_torch.mesh.core import (
     cell_measures,
     facet_measures,
 )
+from gmpnp_tpu_torch.solve.amg import segment_sum, segment_table
 from gmpnp_tpu_torch.solve.slab import (
     SlabFactors,
     full_f32_precision,
@@ -491,27 +492,6 @@ def _eye_like(x):
     return torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
 
 
-def _gather_table(dest: np.ndarray, n_dest: int) -> np.ndarray:
-    """(n_dest, w) table: row i lists the positions of ``dest`` equal to i,
-    ascending, padded with len(dest) (the zero row :func:`_gather_sum`
-    appends).  The deterministic replacement of a scatter-add."""
-    dest = np.asarray(dest).reshape(-1)
-    order = np.argsort(dest, kind="stable")
-    counts = np.bincount(dest, minlength=n_dest)
-    start = np.cumsum(counts) - counts
-    table = np.full((n_dest, max(1, int(counts.max(initial=0)))),
-                    len(dest), np.int64)
-    table[dest[order], np.arange(len(dest)) - np.repeat(start, counts)] = order
-    return table
-
-
-def _gather_sum(values: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """values (M, ...) -> (n_dest, ...): each row's sum over its table
-    entries, in table order."""
-    z = torch.cat([values, values.new_zeros((1,) + tuple(values.shape[1:]))])
-    return z[table].sum(dim=1)
-
-
 def _on(x, device):
     return x.to(device) if isinstance(x, torch.Tensor) else x
 
@@ -531,7 +511,7 @@ class _RankTables:
         self.Nq = torch.as_tensor(plan.Nq, **f64)
         self.wq = torch.as_tensor(plan.wq, **f64)
         self.cell_tab = torch.as_tensor(
-            _gather_table(plan.cells_l[p], N_p + H), **i64)
+            segment_table(plan.cells_l[p], N_p + H), **i64)
         # only the markers the form integrates (the reference skips the
         # others wherever it loops over facets)
         self.facets = {}
@@ -540,7 +520,7 @@ class _RankTables:
             self.facets[m] = (
                 torch.as_tensor(fn[p], **i64), torch.as_tensor(fm[p], **f64),
                 torch.as_tensor(fshape, **f64), torch.as_tensor(fw, **f64),
-                torch.as_tensor(_gather_table(fn[p], N_p + H), **i64))
+                torch.as_tensor(segment_table(fn[p], N_p + H), **i64))
         self.bc_mask = torch.as_tensor(plan.bc_mask[p], device=device)
         self.bc_vals = torch.as_tensor(plan.bc_vals[p], **f64)
         self.valid = torch.as_tensor(plan.valid[p], device=device)
@@ -780,7 +760,7 @@ def make_sharded_step(
                 forms[p], a, b_, c, d, T.Nq, T.wq, th[p]))(ue, upe, g, v)
 
         r_e = _batched(elems, _elem_args(u_ext, up_ext))
-        r_ext = [_gather_sum(r_e[p].reshape(-1, nf), R[p].cell_tab)
+        r_ext = [segment_sum(r_e[p].reshape(-1, nf), R[p].cell_tab)
                  for p in ranks]
         for m in active_markers:
             def facets(p, uf, ms, m=m):
@@ -790,7 +770,7 @@ def make_sharded_step(
                     bfn, a, b_, fshape, fw, th[p]))(uf, ms)
 
             rf = _batched(facets, _facet_args(u_ext, m))
-            r_ext = [r_ext[p] + _gather_sum(rf[p].reshape(-1, nf),
+            r_ext = [r_ext[p] + segment_sum(rf[p].reshape(-1, nf),
                                             R[p].facets[m][4])
                      for p in ranks]
         return r_ext
@@ -845,7 +825,7 @@ def make_sharded_step(
 
         def apply(J, nodes, x_ext, tab):
             x_e = x_ext[nodes].reshape(nodes.shape[0], -1, 1)
-            return _gather_sum((J @ x_e).reshape(-1, nf), tab)
+            return segment_sum((J @ x_e).reshape(-1, nf), tab)
 
         def matvec(xs):
             x_ext = _halo(xs)
@@ -868,11 +848,11 @@ def make_sharded_step(
         for p in ranks:
             T = R[p]
             Je_diag = torch.diagonal(J_e[p], dim1=1, dim2=2)  # (C,f,f,nv)
-            D = _gather_sum(Je_diag.permute(0, 3, 1, 2).reshape(-1, nf * nf),
+            D = segment_sum(Je_diag.permute(0, 3, 1, 2).reshape(-1, nf * nf),
                             T.cell_tab)
             for m, Jf in J_f[p].items():
                 Jf_diag = torch.diagonal(Jf, dim1=1, dim2=2)
-                D = D + _gather_sum(
+                D = D + segment_sum(
                     Jf_diag.permute(0, 3, 1, 2).reshape(-1, nf * nf),
                     T.facets[m][4])
             D_ext.append(D.reshape(-1, nf, nf))

@@ -27,23 +27,26 @@ Notay's AGMG.
   parity held.
 
 Used as ``LinearConfig(kind='gmres'|'bicgstab', precond='amg')``.  The
-``*_lanes`` functions do the same for the V lanes of a batched sweep (one
-lane-batched BlockELL): one plan for every lane (the aggregation depends
+same functions serve the V lanes of a batched sweep (one lane-batched
+BlockELL, r (V, N, f)): one plan for every lane (the aggregation depends
 only on the mesh), its segment tables built once per matrix and shared by
 the lanes, every level's matvecs and smoothing one batched call over the
-lanes, its segment sums and the coarsest solve one call per lane.  The
-preconditioner builds run in ``linear.factor`` spans (``utils.profiling``).
+lanes, its segment sums and the coarsest LU and solve one call per lane
+(``smallblock.lane_by_lane``).  The preconditioner builds run in
+``linear.factor`` spans (``utils.profiling``).
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from gmpnp_tpu_torch.fem.assembly import BlockELL
-from gmpnp_tpu_torch.solve.smallblock import block_inv
+from gmpnp_tpu_torch.ops.ell_spmv import lane_aligned
+from gmpnp_tpu_torch.solve.smallblock import block_inv, block_mv, lane_by_lane
 from gmpnp_tpu_torch.utils.profiling import span
 
 
@@ -139,14 +142,6 @@ def segment_sum(values: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return torch.cat([values, zero])[table].sum(dim=1)
 
 
-def segment_sum_lanes(values: torch.Tensor,
-                      table: torch.Tensor) -> torch.Tensor:
-    """:func:`segment_sum` of every lane: values (V, M, ...) -> (V, n_seg,
-    ...), lane by lane (a sum over the V lanes' members at once rounds
-    otherwise on the card)."""
-    return torch.stack([segment_sum(v, table) for v in values])
-
-
 class AMGLevelPlan(NamedTuple):
     """Host-built static structure of one coarsening step."""
     agg: np.ndarray             # (N,) fine-vertex -> coarse-vertex
@@ -183,34 +178,21 @@ def galerkin_coarse(ell: BlockELL, lvl: AMGLevelPlan) -> BlockELL:
     """A_c = P^T A P for piecewise-constant P: every fine block A[v, k]
     lands whole on coarse block (agg[v], agg[adj[v, k]]) — one segment
     sum.  Padded fine slots hold zero blocks and sum benignly into coarse
-    diagonals."""
+    diagonals.  Over lanes the segment sums run lane by lane (a sum over
+    the V lanes' members at once rounds otherwise on the card), from one
+    table."""
     N, K, f, _ = ell.shape4
+    lead = ell.flat.shape[:-3]
     Nc = lvl.nagg
     Kc = lvl.coarse_adj.shape[1]
     dev = ell.flat.device
     table = torch.as_tensor(segment_table(lvl.scatter, Nc * Kc),
                             dtype=torch.int64, device=dev)
-    coarse = segment_sum(ell.blocks4().reshape(N * K, f * f), table)
-    return BlockELL.from_blocks(
-        torch.as_tensor(lvl.coarse_adj, dtype=torch.int32, device=dev),
-        coarse.reshape(Nc, Kc, f, f),
-        torch.as_tensor(lvl.coarse_diag_slot, dtype=torch.int64, device=dev))
-
-
-def galerkin_coarse_lanes(ell: BlockELL, lvl: AMGLevelPlan,
-                          table: torch.Tensor) -> BlockELL:
-    """:func:`galerkin_coarse` of a lane-batched BlockELL, with the level's
-    Galerkin segment table (``segment_table(lvl.scatter, Nc * Kc)`` on the
-    device) given, so that every lane shares one."""
-    V = ell.lanes
-    N, K, f, _ = ell.shape4
-    Nc = lvl.nagg
-    Kc = lvl.coarse_adj.shape[1]
-    dev = ell.flat.device
-    blocks = ell.flat.reshape(V, N, f, K, f).transpose(2, 3)
-    coarse = segment_sum_lanes(blocks.reshape(V, N * K, f * f), table)
-    flat = coarse.reshape(V, Nc, Kc, f, f).transpose(2, 3).reshape(
-        V, Nc, f, Kc * f)
+    blocks = ell.flat.reshape(*lead, N, f, K, f).transpose(-3, -2)
+    coarse = lane_by_lane(partial(segment_sum, table=table), bool(lead),
+                          blocks.reshape(*lead, N * K, f * f))
+    flat = coarse.reshape(*lead, Nc, Kc, f, f).transpose(-3, -2).reshape(
+        *lead, Nc, f, Kc * f)
     return BlockELL(
         torch.as_tensor(lvl.coarse_adj, dtype=torch.int32, device=dev),
         flat,
@@ -226,13 +208,18 @@ class AMGLevelValues(NamedTuple):
 
 class AMGValues(NamedTuple):
     levels: Tuple[AMGLevelValues, ...]
-    coarsest_lu: Tuple[torch.Tensor, torch.Tensor]   # f32 LU of the bottom
+    # f32 (lu, pivots) of the bottom; over lanes a tuple of the lanes'
+    coarsest_lu: tuple
 
 
 def amg_prepare(ell: BlockELL, plan: AMGPlan) -> AMGValues:
     """Compute the level values for one matrix: Galerkin coarse operators
     (one segment sum per level), block-diagonal inverses, and the f32 LU
-    of the coarsest dense system."""
+    of the coarsest dense system.  Over lanes every level's values gain
+    the lane axis and ``coarsest_lu`` holds each lane's (lu, pivots),
+    factored lane by lane (a batched f32 LU pivots and rounds otherwise on
+    the card); the aggregation tables are the plan's, on the device once
+    for all lanes."""
     levels = []
     cur = ell
     i64 = dict(dtype=torch.int64, device=ell.flat.device)
@@ -243,120 +230,55 @@ def amg_prepare(ell: BlockELL, plan: AMGPlan) -> AMGValues:
             restrict=torch.as_tensor(segment_table(lvl.agg, lvl.nagg),
                                      **i64)))
         cur = galerkin_coarse(cur, lvl)
+        if cur.lanes:
+            cur = BlockELL(cur.adj, lane_aligned(cur.flat), cur.diag_slot)
     dense = cur.to_dense().to(torch.float32)
-    lu, piv = torch.linalg.lu_factor(dense)
-    return AMGValues(levels=tuple(levels), coarsest_lu=(lu, piv))
-
-
-def amg_prepare_lanes(ell: BlockELL, plan: AMGPlan) -> AMGValues:
-    """:func:`amg_prepare` of a lane-batched BlockELL: every level's
-    values gain the lane axis, and ``coarsest_lu`` holds each lane's
-    (lu, pivots), factored lane by lane; the aggregation tables are the
-    plan's, built on the device once for all lanes."""
-    from gmpnp_tpu_torch.ops.ell_spmv import lane_aligned
-
-    levels = []
-    cur = ell
-    i64 = dict(dtype=torch.int64, device=ell.flat.device)
-    for lvl in plan.levels:
-        Kc = lvl.coarse_adj.shape[1]
-        levels.append(AMGLevelValues(
-            ell=cur, Dinv=block_inv(cur.diag_blocks()),
-            agg=torch.as_tensor(lvl.agg, **i64),
-            restrict=torch.as_tensor(segment_table(lvl.agg, lvl.nagg),
-                                     **i64)))
-        cur = galerkin_coarse_lanes(cur, lvl, torch.as_tensor(
-            segment_table(lvl.scatter, lvl.nagg * Kc), **i64))
-        cur = BlockELL(cur.adj, lane_aligned(cur.flat), cur.diag_slot)
-    # the coarsest f32 LU lane by lane, each lane's as ``amg_prepare``'s
-    # (a batched f32 LU pivots and rounds otherwise on the card): a tuple
-    # of V (lu, pivots) pairs
-    dense = cur.to_dense().to(torch.float32)
-    return AMGValues(levels=tuple(levels), coarsest_lu=tuple(
-        torch.linalg.lu_factor(dense[v]) for v in range(dense.shape[0])))
+    return AMGValues(levels=tuple(levels), coarsest_lu=lane_by_lane(
+        torch.linalg.lu_factor, bool(ell.lanes), dense))
 
 
 def _smooth(ell: BlockELL, Dinv, r, z, omega, sweeps):
     """Damped block-Jacobi: z <- z + omega * Dinv (r - A z)."""
     for i in range(sweeps):
         resid = r if z is None else r - ell.matvec(z)
-        upd = omega * torch.einsum("nfg,ng->nf", Dinv, resid)
+        upd = omega * block_mv(Dinv, resid)
         z = upd if z is None else z + upd
     return z
+
+
+def _coarsest_solve(lu_piv, b):
+    lu, piv = lu_piv
+    return torch.linalg.lu_solve(lu, piv, b.reshape(-1, 1).to(torch.float32))
 
 
 def amg_vcycle(vals: AMGValues, plan: AMGPlan, r: torch.Tensor,
                omega: float = 0.67, pre: int = 1, post: int = 1
                ) -> torch.Tensor:
-    """One V(pre, post)-cycle applied to residual r; returns z ~ A^{-1} r."""
+    """One V(pre, post)-cycle applied to residual r; returns z ~ A^{-1} r.
+    Over lanes (r (V, N, f)) the restrictions and the coarsest solve run
+    lane by lane."""
+    lanes = r.dim() == 3
 
     def cyc(i, r_i):
         if i == len(plan.levels):
-            lu, piv = vals.coarsest_lu
-            x = torch.linalg.lu_solve(
-                lu, piv, r_i.reshape(-1, 1).to(torch.float32))
+            x = lane_by_lane(_coarsest_solve, lanes, vals.coarsest_lu, r_i)
             return x.to(r_i.dtype).reshape(r_i.shape)
         lv = vals.levels[i]
         z = _smooth(lv.ell, lv.Dinv, r_i, None, omega, pre)
-        r_c = segment_sum(r_i - lv.ell.matvec(z), lv.restrict)
-        z = z + cyc(i + 1, r_c)[lv.agg]
+        r_c = lane_by_lane(partial(segment_sum, table=lv.restrict), lanes,
+                           r_i - lv.ell.matvec(z))
+        z = z + cyc(i + 1, r_c)[..., lv.agg, :]
         return _smooth(lv.ell, lv.Dinv, r_i, z, omega, post)
 
     return cyc(0, r)
-
-
-def _smooth_lanes(ell: BlockELL, Dinv, r, z, omega, sweeps):
-    """:func:`_smooth` of V lanes: r, z (V, N, f), Dinv (V, N, f, f)."""
-    for i in range(sweeps):
-        resid = r if z is None else r - ell.matvec(z)
-        upd = omega * torch.einsum("vnfg,vng->vnf", Dinv, resid)
-        z = upd if z is None else z + upd
-    return z
-
-
-def amg_vcycle_lanes(vals: AMGValues, plan: AMGPlan, r: torch.Tensor,
-                     omega: float = 0.67, pre: int = 1, post: int = 1
-                     ) -> torch.Tensor:
-    """:func:`amg_vcycle` of V lanes (values of :func:`amg_prepare_lanes`):
-    r (V, N, f) -> z (V, N, f); the coarsest solve lane by lane."""
-
-    def cyc(i, r_i):
-        if i == len(plan.levels):
-            x = torch.stack([
-                torch.linalg.lu_solve(lu, piv,
-                                      b.reshape(-1, 1).to(torch.float32))
-                for (lu, piv), b in zip(vals.coarsest_lu, r_i)])
-            return x.to(r_i.dtype).reshape(r_i.shape)
-        lv = vals.levels[i]
-        z = _smooth_lanes(lv.ell, lv.Dinv, r_i, None, omega, pre)
-        r_c = segment_sum_lanes(r_i - lv.ell.matvec(z), lv.restrict)
-        z = z + cyc(i + 1, r_c)[:, lv.agg]
-        return _smooth_lanes(lv.ell, lv.Dinv, r_i, z, omega, post)
-
-    return cyc(0, r)
-
-
-@span("linear.factor")
-def amg_preconditioner_lanes(ell: BlockELL, plan: AMGPlan,
-                             omega: float = 0.67, pre: int = 1,
-                             post: int = 1
-                             ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """:func:`amg_preconditioner` of a lane-batched BlockELL; r, out:
-    (V, N, f)."""
-    vals = amg_prepare_lanes(ell, plan)
-
-    def apply(r):
-        return amg_vcycle_lanes(vals, plan, r, omega=omega, pre=pre,
-                                post=post)
-
-    return apply
 
 
 @span("linear.factor")
 def amg_preconditioner(ell: BlockELL, plan: AMGPlan,
                        omega: float = 0.67, pre: int = 1, post: int = 1
                        ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """M^{-1} z = one V-cycle on the given matrix; z, out: (N, f).
+    """M^{-1} z = one V-cycle on the given matrix; z, out: (N, f), or
+    (V, N, f) of a lane-batched BlockELL.
 
     Same call contract as :func:`solve.linear.block_jacobi_preconditioner`.
     """

@@ -14,6 +14,13 @@
   (solve.amg).
 - ``dense_solve`` for tests and small systems.
 
+Lanes: the direct solvers and the preconditioners also take the V lanes
+of a batched sweep: a lane-batched BlockELL, (V, N, f, f) bands and
+(V, N, f) vectors.  Each step is then one batched call over the lanes,
+but lane by lane where a batched call would round otherwise than the
+single-lane one (``smallblock.lane_by_lane``).  The Krylov solvers' lane
+forms are ``gmres_lanes`` and ``bicgstab_lanes``.
+
 Spans (``utils.profiling``): factorizations and preconditioner builds run
 in ``linear.factor``, the direct solves and applies in ``linear.solve``,
 GMRES and BiCGStab in ``linear.krylov``.
@@ -21,6 +28,7 @@ GMRES and BiCGStab in ``linear.krylov``.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -28,28 +36,32 @@ import torch
 
 from gmpnp_tpu_torch.fem.assembly import BlockELL
 from gmpnp_tpu_torch.solve.smallblock import (
-    block_inv, block_solve, range_clamp, triangular_solve_upper)
+    block_inv, block_mv, block_solve, eye_row, lane_by_lane, range_clamp,
+    triangular_solve_upper)
 from gmpnp_tpu_torch.sync import to_host
 from gmpnp_tpu_torch.utils.profiling import span
 
 
 # ---------------------------------------------------------------------------
-# Block tridiagonal (1D direct)
+# Block tridiagonal (1D direct): (N, f, f) bands and (N, f) vectors, or
+# (V, N, f, f) and (V, N, f) over lanes
 # ---------------------------------------------------------------------------
 
 def block_tridiag_from_ell(ell: BlockELL):
-    """(lower, diag, upper) block bands, each (N, f, f), of a BlockELL
-    matrix whose mesh vertices are sorted along the line (adjacency
-    {n-1, n, n+1}); lower[0] and upper[N-1] are zero."""
+    """(lower, diag, upper) block bands, each (N, f, f) ((V, N, f, f) of a
+    lane-batched BlockELL), of a BlockELL matrix whose mesh vertices are
+    sorted along the line (adjacency {n-1, n, n+1}); lower[0] and
+    upper[N-1] are zero."""
     N, K, f, _ = ell.shape4
     assert K <= 3, "not a tridiagonal pattern"
+    lead = ell.flat.shape[:-3]
     dev = ell.flat.device
     cols = torch.arange(f, device=dev)
 
     def slot_block(slot):
         # block `slot[n]` of the flat (N, f, K*f) layout
         idx = slot[:, None, None] * f + cols[None, None, :]
-        return torch.gather(ell.flat, 2, idx.expand(N, f, f))
+        return torch.gather(ell.flat, -1, idx.expand(*lead, N, f, f))
 
     rows = torch.arange(N, device=dev)
     zero = torch.zeros((), dtype=ell.flat.dtype, device=dev)
@@ -61,32 +73,35 @@ def block_tridiag_from_ell(ell: BlockELL):
     return lower, diag, upper
 
 
-def _mv(A, x):
-    """Batched (n, f, f) @ (n, f)."""
-    return torch.einsum("nij,nj->ni", A, x)
-
-
 @span("linear.solve")
 def block_tridiag_solve_thomas(lower, diag, upper, rhs):
     """Sequential block-Thomas algorithm (exact; the oracle path): the
     reference's forward and reverse ``lax.scan`` as Python loops.
 
-    lower/diag/upper: (N, f, f); rhs: (N, f).  Returns x: (N, f)."""
-    N, f, _ = diag.shape
-    Cp = torch.zeros((f, f), dtype=diag.dtype, device=diag.device)
-    dp = torch.zeros((f,), dtype=diag.dtype, device=diag.device)
+    lower/diag/upper: (N, f, f); rhs: (N, f).  Returns x: (N, f).  Over
+    lanes ((V, N, f, f), (V, N, f)) each row's steps are one batched call,
+    on (V, f, 1) columns where the single lane takes matrix-vector
+    products."""
+    lanes = diag.dim() == 4
+    N, f = diag.shape[-3], diag.shape[-1]
+    kw = dict(dtype=diag.dtype, device=diag.device)
+    Cp = torch.zeros(diag.shape[:-3] + (f, f), **kw)
+    dp = torch.zeros(diag.shape[:-3] + (f, 1) if lanes else (f,), **kw)
+    rows = (((lower[:, n], diag[:, n], upper[:, n], rhs[:, n, :, None])
+             for n in range(N)) if lanes
+            else zip(lower, diag, upper, rhs))
     Cps, dps = [], []
-    for A, B, C, d in zip(lower, diag, upper, rhs):
+    for A, B, C, d in rows:
         dinv = block_inv(B - A @ Cp)
         Cp, dp = dinv @ C, dinv @ (d - A @ dp)
         Cps.append(Cp)
         dps.append(dp)
-    x = torch.zeros((f,), dtype=diag.dtype, device=diag.device)
+    x = torch.zeros(dp.shape, **kw)
     xs = [None] * N
     for n in range(N - 1, -1, -1):
         x = dps[n] - Cps[n] @ x
         xs[n] = x
-    return torch.stack(xs)
+    return torch.stack(xs, 1)[..., 0] if lanes else torch.stack(xs)
 
 
 def _pow2(N: int) -> int:
@@ -100,10 +115,12 @@ def _identity_pad(A, B, C, n_pad):
     """Append n_pad identity rows (zero off-diagonal blocks)."""
     if n_pad == 0:
         return A, B, C
-    f = B.shape[-1]
-    eye = torch.eye(f, dtype=B.dtype, device=B.device).expand(n_pad, f, f)
-    zed = torch.zeros((n_pad, f, f), dtype=B.dtype, device=B.device)
-    return (torch.cat([A, zed]), torch.cat([B, eye]), torch.cat([C, zed]))
+    lead, f = B.shape[:-3], B.shape[-1]
+    eye = torch.eye(f, dtype=B.dtype, device=B.device).expand(
+        *lead, n_pad, f, f)
+    zed = torch.zeros((*lead, n_pad, f, f), dtype=B.dtype, device=B.device)
+    return (torch.cat([A, zed], -3), torch.cat([B, eye], -3),
+            torch.cat([C, zed], -3))
 
 
 @span("linear.solve")
@@ -113,32 +130,36 @@ def block_tridiag_solve_cr(lower, diag, upper, rhs):
     kept for parity: near-singular odd blocks during a Newton excursion
     otherwise cascade magnitudes across levels)."""
     dtype, dev = diag.dtype, diag.device
-    N, f, _ = diag.shape
+    lead = diag.shape[:-3]
+    N, f = diag.shape[-3], diag.shape[-1]
     M = _pow2(N)
     A, B, C = _identity_pad(lower, diag, upper, M - N)
-    D = torch.cat([rhs, torch.zeros((M - N, f), dtype=dtype, device=dev)])
+    D = torch.cat([rhs, torch.zeros((*lead, M - N, f), dtype=dtype,
+                                    device=dev)], -2)
 
-    eye1 = torch.eye(f, dtype=dtype, device=dev)[None]
-    zed1 = torch.zeros((1, f, f), dtype=dtype, device=dev)
-    zv1 = torch.zeros((1, f), dtype=dtype, device=dev)
+    eye1 = eye_row(f, lead, diag)
+    zed1 = torch.zeros((*lead, 1, f, f), dtype=dtype, device=dev)
+    zv1 = torch.zeros((*lead, 1, f), dtype=dtype, device=dev)
     stack = []
-    while A.shape[0] > 1:
-        m = A.shape[0]
+    while A.shape[-3] > 1:
+        m = A.shape[-3]
         # ghost rows (identity) at both ends for the odd-neighbor accesses
-        Ap = torch.cat([zed1, A, zed1])
-        Bp = torch.cat([eye1, B, eye1])
-        Cp = torch.cat([zed1, C, zed1])
-        Dp = torch.cat([zv1, D, zv1])
+        Ap = torch.cat([zed1, A, zed1], -3)
+        Bp = torch.cat([eye1, B, eye1], -3)
+        Cp = torch.cat([zed1, C, zed1], -3)
+        Dp = torch.cat([zv1, D, zv1], -2)
         # even rows 1, 3, .., m-1 in padded indexing; their left odd
         # neighbors 0, 2, .., m-2 and right ones 2, 4, .., m
         ev, lo, hi = slice(1, m, 2), slice(0, m - 1, 2), slice(2, m + 1, 2)
-        alpha = range_clamp(Ap[ev] @ block_inv(Bp[lo]))
-        gamma = range_clamp(Cp[ev] @ block_inv(Bp[hi]))
+        alpha = range_clamp(Ap[..., ev, :, :] @ block_inv(Bp[..., lo, :, :]))
+        gamma = range_clamp(Cp[..., ev, :, :] @ block_inv(Bp[..., hi, :, :]))
 
-        A_new = range_clamp(-alpha @ Ap[lo])
-        B_new = range_clamp(Bp[ev] - alpha @ Cp[lo] - gamma @ Ap[hi])
-        C_new = range_clamp(-gamma @ Cp[hi])
-        D_new = range_clamp(Dp[ev] - _mv(alpha, Dp[lo]) - _mv(gamma, Dp[hi]))
+        A_new = range_clamp(-alpha @ Ap[..., lo, :, :])
+        B_new = range_clamp(Bp[..., ev, :, :] - alpha @ Cp[..., lo, :, :]
+                            - gamma @ Ap[..., hi, :, :])
+        C_new = range_clamp(-gamma @ Cp[..., hi, :, :])
+        D_new = range_clamp(Dp[..., ev, :] - block_mv(alpha, Dp[..., lo, :])
+                            - block_mv(gamma, Dp[..., hi, :]))
 
         stack.append((A, B, C, D))
         A, B, C, D = A_new, B_new, C_new, D_new
@@ -147,16 +168,17 @@ def block_tridiag_solve_cr(lower, diag, upper, rhs):
 
     # back substitution: interleave odd solutions level by level
     for A_l, B_l, C_l, D_l in reversed(stack):
-        m = A_l.shape[0]
+        m = A_l.shape[-3]
         x_even = x                                   # (m/2, f)
         # odd row 2j+1 sits between even x_j and x_{j+1}
-        x_right = torch.cat([x_even[1:], zv1])
-        rhs_od = range_clamp(D_l[1::2] - _mv(A_l[1::2], x_even)
-                             - _mv(C_l[1::2], x_right))
-        x_odd = range_clamp(block_solve(B_l[1::2], rhs_od))
-        x = torch.stack([x_even, x_odd], dim=1).reshape(m, f)
+        x_right = torch.cat([x_even[..., 1:, :], zv1], -2)
+        rhs_od = range_clamp(D_l[..., 1::2, :]
+                             - block_mv(A_l[..., 1::2, :, :], x_even)
+                             - block_mv(C_l[..., 1::2, :, :], x_right))
+        x_odd = range_clamp(block_solve(B_l[..., 1::2, :, :], rhs_od))
+        x = torch.stack([x_even, x_odd], dim=-2).reshape(*lead, m, f)
 
-    return x[:N]
+    return x[..., :N, :]
 
 
 class _CRLevel(NamedTuple):
@@ -165,7 +187,7 @@ class _CRLevel(NamedTuple):
     h = m/2 rows at this level; alpha/gamma reduce the rhs downward,
     A_od/C_od/Binv_od back-substitute the odd rows upward.  Binv_od serves
     both the reduction and the back-substitution, so each odd block is
-    inverted once."""
+    inverted once.  Over lanes each gains a leading lane axis."""
     alpha: torch.Tensor    # (h, f, f)  A_even @ inv(B_leftodd)
     gamma: torch.Tensor    # (h, f, f)  C_even @ inv(B_rightodd)
     A_od: torch.Tensor     # (h, f, f)  odd rows' lower band
@@ -185,313 +207,117 @@ def block_tridiag_factor_cr(lower, diag, upper) -> CRFactors:
     right-hand sides (the carried 1D chord step; the f32 factorization of
     ``tridiag_mp_solve``)."""
     dtype, dev = diag.dtype, diag.device
-    N, f, _ = diag.shape
+    lead = diag.shape[:-3]
+    N, f = diag.shape[-3], diag.shape[-1]
     A, B, C = _identity_pad(lower, diag, upper, _pow2(N) - N)
 
-    eye1 = torch.eye(f, dtype=dtype, device=dev)[None]
-    zed1 = torch.zeros((1, f, f), dtype=dtype, device=dev)
+    eye1 = eye_row(f, lead, diag)
+    zed1 = torch.zeros((*lead, 1, f, f), dtype=dtype, device=dev)
     levels = []
-    while A.shape[0] > 1:
-        A_od, B_od, C_od = A[1::2], B[1::2], C[1::2]
+    while A.shape[-3] > 1:
+        A_od, B_od, C_od = (A[..., 1::2, :, :], B[..., 1::2, :, :],
+                            C[..., 1::2, :, :])
         Binv_od = block_inv(B_od)
         # even row 2j's left odd neighbor is 2j-1 (ghost identity at j=0),
         # its right odd neighbor is 2j+1; level products range-clamped
-        Binv_left = torch.cat([eye1, Binv_od[:-1]])
-        alpha = range_clamp(A[0::2] @ Binv_left)
-        gamma = range_clamp(C[0::2] @ Binv_od)
+        Binv_left = torch.cat([eye1, Binv_od[..., :-1, :, :]], -3)
+        alpha = range_clamp(A[..., 0::2, :, :] @ Binv_left)
+        gamma = range_clamp(C[..., 0::2, :, :] @ Binv_od)
         levels.append(_CRLevel(alpha, gamma, A_od, C_od, Binv_od))
-        A_left = torch.cat([zed1, A_od[:-1]])
-        C_left = torch.cat([zed1, C_od[:-1]])
+        A_left = torch.cat([zed1, A_od[..., :-1, :, :]], -3)
+        C_left = torch.cat([zed1, C_od[..., :-1, :, :]], -3)
         A, B, C = (range_clamp(-alpha @ A_left),
-                   range_clamp(B[0::2] - alpha @ C_left - gamma @ A_od),
+                   range_clamp(B[..., 0::2, :, :] - alpha @ C_left
+                               - gamma @ A_od),
                    range_clamp(-gamma @ C_od))
-    return CRFactors(levels=tuple(levels), Binv_top=block_inv(B[0]))
+    return CRFactors(levels=tuple(levels),
+                     Binv_top=block_inv(B[..., 0, :, :]))
 
 
 @span("linear.solve")
 def block_tridiag_apply_cr(factors: CRFactors, rhs: torch.Tensor):
-    """Solve with a prepared CR factorization.  rhs: (N, f) in the
-    factorization's dtype (padded rows solve to 0 exactly)."""
-    N, f = rhs.shape
+    """Solve with a prepared CR factorization.  rhs: (N, f) or (V, N, f)
+    in the factorization's dtype (padded rows solve to 0 exactly)."""
+    lead = rhs.shape[:-2]
+    N, f = rhs.shape[-2:]
     M = 2 ** len(factors.levels)
-    zv1 = torch.zeros((1, f), dtype=rhs.dtype, device=rhs.device)
+    zv1 = torch.zeros((*lead, 1, f), dtype=rhs.dtype, device=rhs.device)
     D = rhs
     if M > N:
-        D = torch.cat([D, zv1.expand(M - N, f)])
+        D = torch.cat([D, zv1.expand(*lead, M - N, f)], -2)
 
     odd_rhs = []
     for lev in factors.levels:
-        D_ev, D_od = D[0::2], D[1::2]
+        D_ev, D_od = D[..., 0::2, :], D[..., 1::2, :]
         odd_rhs.append(D_od)
-        D_left = torch.cat([zv1, D_od[:-1]])
-        D = range_clamp(D_ev - _mv(lev.alpha, D_left) - _mv(lev.gamma, D_od))
+        D_left = torch.cat([zv1, D_od[..., :-1, :]], -2)
+        D = range_clamp(D_ev - block_mv(lev.alpha, D_left)
+                        - block_mv(lev.gamma, D_od))
 
-    x = (factors.Binv_top @ D[0])[None]               # (1, f)
+    # the top solve lane by lane: the single lane's matrix-vector call, so
+    # that each lane's apply has its bits
+    x = lane_by_lane(torch.matmul, bool(lead), factors.Binv_top,
+                     D[..., 0, :])[..., None, :]      # (1, f)
     for lev, D_od in zip(reversed(factors.levels), reversed(odd_rhs)):
-        x_right = torch.cat([x[1:], zv1])
-        r_od = range_clamp(D_od - _mv(lev.A_od, x) - _mv(lev.C_od, x_right))
-        x_odd = range_clamp(_mv(lev.Binv_od, r_od))
-        x = torch.stack([x, x_odd], dim=1).reshape(2 * x.shape[0], f)
-    return x[:N]
+        x_right = torch.cat([x[..., 1:, :], zv1], -2)
+        r_od = range_clamp(D_od - block_mv(lev.A_od, x)
+                           - block_mv(lev.C_od, x_right))
+        x_odd = range_clamp(block_mv(lev.Binv_od, r_od))
+        x = torch.stack([x, x_odd], dim=-2).reshape(
+            *lead, 2 * x.shape[-2], f)
+    return x[..., :N, :]
 
 
 @span("linear.solve")
 def tridiag_mp_solve(ell: BlockELL, rhs: torch.Tensor,
-                     tol: float = 1.0e-8, max_refine: int = 40):
+                     tol: float = 1.0e-8, max_refine: int = 40,
+                     active: Optional[np.ndarray] = None):
     """Mixed-precision 1D direct solve (``LinearConfig(kind='tridiag_cr',
     solve_dtype='f32')``): block-row equilibration in f64 (diagonal blocks
     to identity), one f32 CR factorization, then f64 CGS2-GMRES on the
     equilibrated system preconditioned by the f32 CR apply.  The GMRES
     matvec is ``BlockELL.matvec``: the block-ELL kernel in f64 on CUDA
-    tensors.  Returns a KrylovResult in the rhs dtype."""
-    Dinv0 = block_inv(ell.diag_blocks())
-    ell_eq = ell.scale_rows(Dinv0)
-    b = _mv(Dinv0, rhs)
-    lo, di, up = block_tridiag_from_ell(ell_eq)
-    fac = block_tridiag_factor_cr(lo.to(torch.float32),
-                                  di.to(torch.float32),
-                                  up.to(torch.float32))
+    tensors.  Returns a KrylovResult in the rhs dtype.
 
-    def solve32(r):
-        return block_tridiag_apply_cr(fac, r.to(torch.float32)).to(rhs.dtype)
-
-    return gmres(ell_eq.matvec, b, Minv=solve32, tol=tol,
-                 restart=min(max_refine, 30), maxiter=max_refine)
-
-
-# ---------------------------------------------------------------------------
-# Block tridiagonal over sweep lanes: (V, N, f, f) bands, (V, N, f) vectors
-# ---------------------------------------------------------------------------
-#
-# The lane versions of the CR factor / apply / solve: every level is one
-# batched call over the V lanes and the level's rows, so V lanes take the
-# launches of one.  Each lane computes what the single-lane function
-# computes for it (the same operations, with a leading lane axis).
-
-def _mvl(A, x):
-    """Batched (V, n, f, f) @ (V, n, f)."""
-    return torch.einsum("vnij,vnj->vni", A, x)
-
-
-def block_tridiag_from_ell_lanes(ell: BlockELL):
-    """``block_tridiag_from_ell`` of a lane-batched BlockELL: (lower, diag,
-    upper), each (V, N, f, f)."""
-    V, N, f, Kf = ell.flat.shape
-    K = Kf // f
-    assert K <= 3, "not a tridiagonal pattern"
-    dev = ell.flat.device
-    cols = torch.arange(f, device=dev)
-
-    def slot_block(slot):
-        idx = slot[:, None, None] * f + cols[None, None, :]
-        return torch.gather(ell.flat, 3, idx.expand(V, N, f, f))
-
-    rows = torch.arange(N, device=dev)
-    zero = torch.zeros((), dtype=ell.flat.dtype, device=dev)
-    diag = slot_block(ell.diag_slot)
-    lower = slot_block(torch.clamp(ell.diag_slot - 1, 0, K - 1))
-    upper = slot_block(torch.clamp(ell.diag_slot + 1, 0, K - 1))
-    lower = torch.where((rows > 0)[:, None, None], lower, zero)
-    upper = torch.where((rows < N - 1)[:, None, None], upper, zero)
-    return lower, diag, upper
-
-
-def _identity_pad_lanes(A, B, C, n_pad):
-    if n_pad == 0:
-        return A, B, C
-    V, _, f, _ = B.shape
-    eye = torch.eye(f, dtype=B.dtype, device=B.device).expand(V, n_pad, f, f)
-    zed = torch.zeros((V, n_pad, f, f), dtype=B.dtype, device=B.device)
-    return (torch.cat([A, zed], 1), torch.cat([B, eye], 1),
-            torch.cat([C, zed], 1))
-
-
-@span("linear.solve")
-def block_tridiag_solve_thomas_lanes(lower, diag, upper, rhs):
-    """``block_tridiag_solve_thomas`` over lanes: (V, N, f, f) bands, rhs
-    (V, N, f) -> x (V, N, f); each row's steps one batched call over the
-    lanes."""
-    V, N, f, _ = diag.shape
-    Cp = torch.zeros((V, f, f), dtype=diag.dtype, device=diag.device)
-    dp = torch.zeros((V, f, 1), dtype=diag.dtype, device=diag.device)
-    Cps, dps = [], []
-    for n in range(N):
-        A = lower[:, n]
-        dinv = block_inv(diag[:, n] - A @ Cp)
-        Cp, dp = dinv @ upper[:, n], dinv @ (rhs[:, n, :, None] - A @ dp)
-        Cps.append(Cp)
-        dps.append(dp)
-    x = torch.zeros((V, f, 1), dtype=diag.dtype, device=diag.device)
-    xs = [None] * N
-    for n in range(N - 1, -1, -1):
-        x = dps[n] - Cps[n] @ x
-        xs[n] = x
-    return torch.stack(xs, 1)[..., 0]
-
-
-@span("linear.solve")
-def block_tridiag_solve_cr_lanes(lower, diag, upper, rhs):
-    """``block_tridiag_solve_cr`` over lanes: (V, N, f, f) bands, rhs
-    (V, N, f) -> x (V, N, f)."""
-    dtype, dev = diag.dtype, diag.device
-    V, N, f, _ = diag.shape
-    M = _pow2(N)
-    A, B, C = _identity_pad_lanes(lower, diag, upper, M - N)
-    D = torch.cat([rhs, torch.zeros((V, M - N, f), dtype=dtype, device=dev)],
-                  1)
-
-    eye1 = torch.eye(f, dtype=dtype, device=dev).expand(V, 1, f, f)
-    zed1 = torch.zeros((V, 1, f, f), dtype=dtype, device=dev)
-    zv1 = torch.zeros((V, 1, f), dtype=dtype, device=dev)
-    stack = []
-    while A.shape[1] > 1:
-        m = A.shape[1]
-        Ap = torch.cat([zed1, A, zed1], 1)
-        Bp = torch.cat([eye1, B, eye1], 1)
-        Cp = torch.cat([zed1, C, zed1], 1)
-        Dp = torch.cat([zv1, D, zv1], 1)
-        ev, lo, hi = slice(1, m, 2), slice(0, m - 1, 2), slice(2, m + 1, 2)
-        alpha = range_clamp(Ap[:, ev] @ block_inv(Bp[:, lo]))
-        gamma = range_clamp(Cp[:, ev] @ block_inv(Bp[:, hi]))
-
-        A_new = range_clamp(-alpha @ Ap[:, lo])
-        B_new = range_clamp(Bp[:, ev] - alpha @ Cp[:, lo]
-                            - gamma @ Ap[:, hi])
-        C_new = range_clamp(-gamma @ Cp[:, hi])
-        D_new = range_clamp(Dp[:, ev] - _mvl(alpha, Dp[:, lo])
-                            - _mvl(gamma, Dp[:, hi]))
-
-        stack.append((A, B, C, D))
-        A, B, C, D = A_new, B_new, C_new, D_new
-
-    x = block_solve(B, D)                           # (V, 1, f)
-
-    for A_l, B_l, C_l, D_l in reversed(stack):
-        m = A_l.shape[1]
-        x_even = x
-        x_right = torch.cat([x_even[:, 1:], zv1], 1)
-        rhs_od = range_clamp(D_l[:, 1::2] - _mvl(A_l[:, 1::2], x_even)
-                             - _mvl(C_l[:, 1::2], x_right))
-        x_odd = range_clamp(block_solve(B_l[:, 1::2], rhs_od))
-        x = torch.stack([x_even, x_odd], dim=2).reshape(V, m, f)
-
-    return x[:, :N]
-
-
-@span("linear.factor")
-def block_tridiag_factor_cr_lanes(lower, diag, upper) -> CRFactors:
-    """``block_tridiag_factor_cr`` over lanes: every factor gains the lane
-    axis ((V, h, f, f) per level, ``Binv_top`` (V, f, f))."""
-    dtype, dev = diag.dtype, diag.device
-    V, N, f, _ = diag.shape
-    A, B, C = _identity_pad_lanes(lower, diag, upper, _pow2(N) - N)
-
-    eye1 = torch.eye(f, dtype=dtype, device=dev).expand(V, 1, f, f)
-    zed1 = torch.zeros((V, 1, f, f), dtype=dtype, device=dev)
-    levels = []
-    while A.shape[1] > 1:
-        A_od, B_od, C_od = A[:, 1::2], B[:, 1::2], C[:, 1::2]
-        Binv_od = block_inv(B_od)
-        Binv_left = torch.cat([eye1, Binv_od[:, :-1]], 1)
-        alpha = range_clamp(A[:, 0::2] @ Binv_left)
-        gamma = range_clamp(C[:, 0::2] @ Binv_od)
-        levels.append(_CRLevel(alpha, gamma, A_od, C_od, Binv_od))
-        A_left = torch.cat([zed1, A_od[:, :-1]], 1)
-        C_left = torch.cat([zed1, C_od[:, :-1]], 1)
-        A, B, C = (range_clamp(-alpha @ A_left),
-                   range_clamp(B[:, 0::2] - alpha @ C_left - gamma @ A_od),
-                   range_clamp(-gamma @ C_od))
-    return CRFactors(levels=tuple(levels), Binv_top=block_inv(B[:, 0]))
-
-
-@span("linear.solve")
-def block_tridiag_apply_cr_lanes(factors: CRFactors, rhs: torch.Tensor):
-    """``block_tridiag_apply_cr`` over lanes: rhs (V, N, f)."""
-    V, N, f = rhs.shape
-    M = 2 ** len(factors.levels)
-    zv1 = torch.zeros((V, 1, f), dtype=rhs.dtype, device=rhs.device)
-    D = rhs
-    if M > N:
-        D = torch.cat([D, zv1.expand(V, M - N, f)], 1)
-
-    odd_rhs = []
-    for lev in factors.levels:
-        D_ev, D_od = D[:, 0::2], D[:, 1::2]
-        odd_rhs.append(D_od)
-        D_left = torch.cat([zv1, D_od[:, :-1]], 1)
-        D = range_clamp(D_ev - _mvl(lev.alpha, D_left)
-                        - _mvl(lev.gamma, D_od))
-
-    # the top solve lane by lane: the single-lane function's own
-    # matrix-vector call, so each lane's apply has its bits
-    x = torch.stack([top @ d for top, d in zip(factors.Binv_top,
-                                               D[:, 0])])[:, None]  # (V, 1, f)
-    for lev, D_od in zip(reversed(factors.levels), reversed(odd_rhs)):
-        x_right = torch.cat([x[:, 1:], zv1], 1)
-        r_od = range_clamp(D_od - _mvl(lev.A_od, x)
-                           - _mvl(lev.C_od, x_right))
-        x_odd = range_clamp(_mvl(lev.Binv_od, r_od))
-        x = torch.stack([x, x_odd], dim=2).reshape(V, 2 * x.shape[1], f)
-    return x[:, :N]
-
-
-@span("linear.solve")
-def tridiag_mp_solve_lanes(ell: BlockELL, rhs: torch.Tensor,
-                           tol: float = 1.0e-8, max_refine: int = 40,
-                           active: Optional[np.ndarray] = None):
-    """``tridiag_mp_solve`` over lanes: a lane-batched BlockELL, rhs
-    (V, N, f).  The f64 equilibration and the f32 CR factor and apply of
-    every lane at once, then f64 GMRES over the lanes (``gmres_lanes``:
-    each lane refines until it meets its own tol) whose matvec is one
-    launch of the block-ELL kernel's lane axis.  ``active`` (V,) bool
-    leaves the other lanes out.  Returns a KrylovResult whose ``resnorm``,
-    ``iters`` and ``converged`` are (V,) arrays."""
+    Over lanes (a lane-batched BlockELL, rhs (V, N, f)) the GMRES is
+    ``gmres_lanes``: each lane refines until it meets its own tol, and
+    ``active`` (V,) bool leaves the other lanes out; the result's
+    ``resnorm``, ``iters`` and ``converged`` are (V,) arrays."""
     from gmpnp_tpu_torch.ops.ell_spmv import lane_aligned
 
     Dinv0 = block_inv(ell.diag_blocks())
     ell_eq = ell.scale_rows(Dinv0)
-    b = _mvl(Dinv0, rhs)
-    lo, di, up = block_tridiag_from_ell_lanes(ell_eq)
-    fac = block_tridiag_factor_cr_lanes(lo.to(torch.float32),
-                                        di.to(torch.float32),
-                                        up.to(torch.float32))
-    ell_eq = BlockELL(ell_eq.adj, lane_aligned(ell_eq.flat),
-                      ell_eq.diag_slot)
+    b = block_mv(Dinv0, rhs)
+    lo, di, up = block_tridiag_from_ell(ell_eq)
+    fac = block_tridiag_factor_cr(lo.to(torch.float32),
+                                  di.to(torch.float32),
+                                  up.to(torch.float32))
+    krylov = gmres
+    if ell.lanes:
+        # every lane's matrix on a 16-byte boundary for the kernel's lanes
+        ell_eq = BlockELL(ell_eq.adj, lane_aligned(ell_eq.flat),
+                          ell_eq.diag_slot)
+        krylov = partial(gmres_lanes, active=active)
 
     def solve32(r):
-        return block_tridiag_apply_cr_lanes(
-            fac, r.to(torch.float32)).to(rhs.dtype)
+        return block_tridiag_apply_cr(fac, r.to(torch.float32)).to(rhs.dtype)
 
-    return gmres_lanes(ell_eq.matvec, b, Minv=solve32, tol=tol,
-                       restart=min(max_refine, 30), maxiter=max_refine,
-                       active=active)
+    return krylov(ell_eq.matvec, b, Minv=solve32, tol=tol,
+                  restart=min(max_refine, 30), maxiter=max_refine)
 
 
 # ---------------------------------------------------------------------------
-# Preconditioners
+# Preconditioners: z, out (N, f), or (V, N, f) of a lane-batched BlockELL
 # ---------------------------------------------------------------------------
 
 @span("linear.factor")
 def block_jacobi_preconditioner(ell: BlockELL) -> Callable[[torch.Tensor],
                                                             torch.Tensor]:
-    """M^{-1} z with M = block diagonal of the matrix; z, out: (N, f)."""
+    """M^{-1} z with M = block diagonal of the matrix."""
     Dinv = block_inv(ell.diag_blocks())
 
     def apply(z):
-        return _mv(Dinv, z)
-
-    return apply
-
-
-@span("linear.factor")
-def block_jacobi_preconditioner_lanes(ell: BlockELL) -> Callable[
-        [torch.Tensor], torch.Tensor]:
-    """``block_jacobi_preconditioner`` of a lane-batched BlockELL; z, out:
-    (V, N, f)."""
-    Dinv = block_inv(ell.diag_blocks())
-
-    def apply(z):
-        return _mvl(Dinv, z)
+        return block_mv(Dinv, z)
 
     return apply
 
@@ -566,87 +392,45 @@ def multicolor_ssor_preconditioner(
     the row it repeats, so which duplicate write lands does not matter.
     The off-diagonal rows of a color are one gather of their block rows
     and of ``z[adj]`` and one batched matrix-vector product (``bmm``).
+    Over lanes the block inverses, the diagonal scaling and the extra
+    sweeps' matvecs are one call for all lanes, each color's gathers,
+    products and block solves the single lane's calls, lane by lane.
     """
+    lanes = ell.lanes is not None
     _, K, f, _ = ell.shape4
-    dev = ell.flat.device
-    color_lists = _color_lists(colors, dev)
+    color_lists = _color_lists(colors, ell.flat.device)
     nc = len(color_lists)
 
     D = ell.diag_blocks() / omega
     Dinv = block_inv(D)
-    offflat = ell.flat.masked_fill(_diag_mask(ell)[:, None, :], 0.0)
+    mask = _diag_mask(ell)
+    offflat = ell.flat.masked_fill(
+        mask[None, :, None, :] if lanes else mask[:, None, :], 0.0)
     adj = ell.adj.long()
 
-    def offdiag_rows(z, verts):
-        """sum_k offblocks[v,k] z[adj[v,k]] for a vertex set."""
-        blk = offflat[verts]                          # (M, f, K*f)
-        zg = z[adj[verts]].reshape(len(verts), K * f, 1)
-        return torch.bmm(blk, zg)[..., 0]
-
     def sweep(z, r, order):
+        # lane by lane, the single lane's calls on operands gathered afresh:
+        # one product over the V lanes' rows of a color, or one on a lane's
+        # slice of them, rounds otherwise on the card
         for c in order:
             verts = color_lists[c]
-            rhs = r[verts] - offdiag_rows(z, verts)
-            z[verts] = _mv(Dinv[verts], rhs)
+            nbrs = adj[verts]
+            for zl, rl, offl, Dl in (zip(z, r, offflat, Dinv) if lanes
+                                     else [(z, r, offflat, Dinv)]):
+                zg = zl[nbrs].reshape(len(verts), K * f, 1)
+                rhs = rl[verts] - torch.bmm(offl[verts], zg)[..., 0]
+                zl[verts] = block_mv(Dl[verts], rhs)
         return z
 
     def ssor_solve(r):
         # forward: (D/w + L)^{-1} r -> scale by D/w -> backward (D/w + U)^{-1}
         z = sweep(torch.zeros_like(r), r, range(nc))
-        z = _mv(D, z)
+        z = block_mv(D, z)
         return sweep(torch.zeros_like(r), z, range(nc - 1, -1, -1))
 
     def apply(r):
         z = ssor_solve(r)
         for _ in range(sweeps - 1):   # extra sweeps = stationary iteration
-            z = z + ssor_solve(r - ell.matvec(z))
-        return z
-
-    return apply
-
-
-@span("linear.factor")
-def multicolor_ssor_preconditioner_lanes(
-    ell: BlockELL,
-    colors: "np.ndarray",
-    sweeps: int = 1,
-    omega: float = 1.0,
-) -> Callable[[torch.Tensor], torch.Tensor]:
-    """``multicolor_ssor_preconditioner`` of a lane-batched BlockELL (r,
-    out: (V, N, f)): the block inverses, the diagonal scaling and the extra
-    sweeps' matvecs are one call over the lanes; each color's gathers,
-    off-diagonal products and block solves are the single-lane calls, lane
-    by lane."""
-    _, K, f, _ = ell.shape4
-    color_lists = _color_lists(colors, ell.flat.device)
-    nc = len(color_lists)
-    D = ell.diag_blocks() / omega
-    Dinv = block_inv(D)
-    offflat = ell.flat.masked_fill(_diag_mask(ell)[None, :, None, :], 0.0)
-    adj = ell.adj.long()
-
-    def sweep(z, r, order):
-        # lane by lane, the single-lane preconditioner's own calls on
-        # operands gathered afresh: one product over the V lanes' rows of a
-        # color, or one on a lane's slice of them, rounds otherwise on the
-        # card
-        for c in order:
-            verts = color_lists[c]
-            nbrs = adj[verts]
-            for zl, rl, offl, Dl in zip(z, r, offflat, Dinv):
-                zg = zl[nbrs].reshape(len(verts), K * f, 1)
-                rhs = rl[verts] - torch.bmm(offl[verts], zg)[..., 0]
-                zl[verts] = _mv(Dl[verts], rhs)
-        return z
-
-    def ssor_solve(r):
-        z = sweep(torch.zeros_like(r), r, range(nc))
-        z = _mvl(D, z)
-        return sweep(torch.zeros_like(r), z, range(nc - 1, -1, -1))
-
-    def apply(r):
-        z = ssor_solve(r)
-        for _ in range(sweeps - 1):
             z = z + ssor_solve(r - ell.matvec(z))
         return z
 
@@ -1105,18 +889,10 @@ def bicgstab_lanes(
                         live & (rnorm <= target))
 
 
+
 @span("linear.solve")
 def dense_solve(ell: BlockELL, rhs: torch.Tensor) -> torch.Tensor:
-    """Direct dense solve (tests / small systems)."""
-    N, _, f, _ = ell.shape4
-    x = torch.linalg.solve(ell.to_dense(), rhs.reshape(-1))
-    return x.reshape(N, f)
-
-
-@span("linear.solve")
-def dense_solve_lanes(ell: BlockELL, rhs: torch.Tensor) -> torch.Tensor:
-    """``dense_solve`` of a lane-batched BlockELL: rhs (V, N, f), one
-    batched dense solve of the lanes' (V, N*f, N*f) matrices."""
-    V = rhs.shape[0]
-    x = torch.linalg.solve(ell.to_dense(), rhs.reshape(V, -1))
+    """Direct dense solve (tests / small systems); over lanes one batched
+    dense solve of the lanes' (V, N*f, N*f) matrices."""
+    x = torch.linalg.solve(ell.to_dense(), rhs.reshape(*rhs.shape[:-2], -1))
     return x.reshape(rhs.shape)

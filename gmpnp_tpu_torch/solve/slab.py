@@ -19,22 +19,30 @@ Newton-Schulz refinement pass.
 reduction (``slab_factor_cr``): ceil(log2 S) levels of batched m x m
 inverses instead of S sequential ones.
 
-``slab_prepare`` and ``slab_prepare_lanes`` run in ``linear.factor``
-spans, the applies and ``slab_direct_solve`` in ``linear.solve`` spans
-(``utils.profiling``).
+Lanes: the relayouts, factorizations, solves, ``slab_prepare`` and
+``slab_apply`` also take the V lanes of a batched sweep (a lane-batched
+BlockELL, (V, S, m, m) factors, (V, N, f) vectors): the band gathers and
+products one batched call over the lanes, the refined m x m inverses one
+call per lane (``smallblock.lane_by_lane``).
+
+``slab_prepare`` runs in a ``linear.factor`` span, the applies and
+``slab_direct_solve`` in ``linear.solve`` spans (``utils.profiling``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import partial
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from gmpnp_tpu_torch.fem.assembly import BlockELL
-from gmpnp_tpu_torch.ops.ell_spmv import ell_spmv
-from gmpnp_tpu_torch.solve.smallblock import block_inv
+from gmpnp_tpu_torch.ops.ell_spmv import ell_spmv, lane_aligned
+from gmpnp_tpu_torch.solve.linear import gmres, gmres_lanes
+from gmpnp_tpu_torch.solve.smallblock import (
+    block_inv, block_mv, eye_row, lane_by_lane)
 from gmpnp_tpu_torch.utils.profiling import span
 
 
@@ -165,29 +173,20 @@ class SlabPlan:
     # -- vector relayout ---------------------------------------------------
 
     def to_slabs(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, f) -> (S, m) in slab ordering (padded tail = 0)."""
-        xp = torch.cat([x, torch.zeros((1, self.f), dtype=x.dtype,
-                                       device=x.device)], dim=0)
-        return xp[self._index(x.device)["perm"]].reshape(self.S, self.m)
+        """(N, f) -> (S, m) in slab ordering (padded tail = 0); over lanes
+        (V, N, f) -> (V, S, m)."""
+        lead = x.shape[:-2]
+        xp = torch.cat([x, torch.zeros((*lead, 1, self.f), dtype=x.dtype,
+                                       device=x.device)], dim=-2)
+        return xp[..., self._index(x.device)["perm"], :].reshape(
+            *lead, self.S, self.m)
 
     def from_slabs(self, xs: torch.Tensor) -> torch.Tensor:
-        """(S, m) -> (N, f) in original vertex ordering."""
-        flat = xs.reshape(self.S * self.m_v, self.f)
-        return flat[self._index(xs.device)["iperm"]]
-
-    def to_slabs_lanes(self, x: torch.Tensor) -> torch.Tensor:
-        """(V, N, f) -> (V, S, m), ``to_slabs`` of every lane."""
-        V = x.shape[0]
-        xp = torch.cat([x, torch.zeros((V, 1, self.f), dtype=x.dtype,
-                                       device=x.device)], dim=1)
-        return xp[:, self._index(x.device)["perm"]].reshape(V, self.S,
-                                                            self.m)
-
-    def from_slabs_lanes(self, xs: torch.Tensor) -> torch.Tensor:
-        """(V, S, m) -> (V, N, f), ``from_slabs`` of every lane."""
-        V = xs.shape[0]
-        flat = xs.reshape(V, self.S * self.m_v, self.f)
-        return flat[:, self._index(xs.device)["iperm"]]
+        """(S, m) -> (N, f) in original vertex ordering; over lanes
+        (V, S, m) -> (V, N, f)."""
+        lead = xs.shape[:-2]
+        flat = xs.reshape(*lead, self.S * self.m_v, self.f)
+        return flat[..., self._index(xs.device)["iperm"], :]
 
     def bands(self, ell: BlockELL, dtype=torch.float32):
         """Relayout a BlockELL matrix into (lower, diag, upper) dense bands
@@ -209,20 +208,24 @@ class SlabPlan:
 
 
 class SlabFactors(NamedTuple):
+    """Over lanes each gains a leading lane axis."""
     Dinv: torch.Tensor   # (S, m, m) inverses of the eliminated diagonals
     Cp: torch.Tensor     # (S, m, m) Dinv @ upper
     Al: torch.Tensor     # (S, m, m) original lower band
 
 
 def _band_of_slab_fn(ell: BlockELL, plan: SlabPlan, dtype=torch.float32):
-    """Closure s -> (lower, diag, upper) bands of slab ``s``, each (m, m),
-    gathered from the BlockELL blocks by the plan's block map."""
+    """Closure s -> (lower, diag, upper) bands of slab ``s``, each (m, m)
+    ((V, m, m) of a lane-batched BlockELL), gathered from the BlockELL
+    blocks by the plan's block map."""
     N, K, f, _ = ell.shape4
+    lead = ell.flat.shape[:-3]
     m, m_v = plan.m, plan.m_v
     dev = ell.flat.device
-    blk = ell.blocks4().to(dtype).reshape(N * K, f, f)
-    blk = torch.cat([blk, torch.zeros((1, f, f), dtype=dtype, device=dev)],
-                    dim=0)
+    blk = ell.flat.reshape(*lead, N, f, K, f).transpose(-3, -2).to(dtype)
+    blk = torch.cat([blk.reshape(*lead, N * K, f, f),
+                     torch.zeros((*lead, 1, f, f), dtype=dtype, device=dev)],
+                    dim=-3)
     bidx = plan._index(dev)["bidx"]               # (S, m_v, 3m_v)
     # identity rows (diagonal band) for the padded tail of the last slab
     eye_band = torch.cat(
@@ -231,114 +234,48 @@ def _band_of_slab_fn(ell: BlockELL, plan: SlabPlan, dtype=torch.float32):
          torch.zeros((m, m), dtype=dtype, device=dev)], dim=1)   # (m, 3m)
 
     def band_of_slab(s: int):
-        B4 = blk[bidx[s]]                         # (m_v, 3m_v, f, f)
-        B = B4.permute(0, 2, 1, 3).reshape(m, 3 * m)
+        B4 = blk[..., bidx[s], :, :]              # (m_v, 3m_v, f, f)
+        B = B4.permute(*range(len(lead)), -4, -2, -3, -1).reshape(
+            *lead, m, 3 * m)
         n_pad = (s + 1) * m_v - plan.N            # padded rows of this slab
         if n_pad > 0:
             B = B.clone()
-            B[m - n_pad * f:] = eye_band[m - n_pad * f:]
-        return B[:, :m], B[:, m:2 * m], B[:, 2 * m:]
+            B[..., m - n_pad * f:, :] = eye_band[m - n_pad * f:]
+        return B[..., :m], B[..., m:2 * m], B[..., 2 * m:]
 
     return band_of_slab
+
+
+def _eliminate(rows, Cp: torch.Tensor):
+    """Block-Thomas forward elimination of the slabs' (lower, diag, upper)
+    bands ``rows`` from ``Cp`` = 0: S sequential steps of two m x m
+    products and one refined m x m inverse.  Returns the lists of the
+    slabs' inverted eliminated diagonals, of Dinv @ upper and of the lower
+    bands.  Over lanes ((V, m, m) bands) the products are one batched call
+    and the inverses one call per lane: on the H100 one batched
+    ``torch.linalg.inv`` of three 918 x 918 f32 blocks takes 2.1x the time
+    of three single calls (``python3 chip_smoke.py --profile``)."""
+    lanes = Cp.dim() == 3
+    Dinvs, Cps, Als = [], [], []
+    for A, Bd, C in rows:
+        Dinv = lane_by_lane(_inv_refined, lanes, Bd - A @ Cp)
+        Cp = Dinv @ C
+        Dinvs.append(Dinv)
+        Cps.append(Cp)
+        Als.append(A)
+    return Dinvs, Cps, Als
 
 
 def slab_factor_fused(ell: BlockELL, plan: SlabPlan,
                       dtype=torch.float32) -> SlabFactors:
-    """Block-Thomas forward elimination with the band gather per slab: S
-    sequential steps of two m x m products and one refined m x m
-    inverse."""
-    m, S = plan.m, plan.S
+    """Block-Thomas forward elimination with the band gather per slab, in
+    full f32 under ``full_f32_precision``; over lanes the factors are
+    (V, S, m, m)."""
     band_of_slab = _band_of_slab_fn(ell, plan, dtype)
-    Cp_prev = torch.zeros((m, m), dtype=dtype, device=ell.flat.device)
-    Dinvs, Cps, Als = [], [], []
-    for s in range(S):
-        A, Bd, C = band_of_slab(s)
-        denom = Bd - A @ Cp_prev
-        Dinv = _inv_refined(denom)
-        Cp_prev = Dinv @ C
-        Dinvs.append(Dinv)
-        Cps.append(Cp_prev)
-        Als.append(A)
-    return SlabFactors(Dinv=torch.stack(Dinvs), Cp=torch.stack(Cps),
-                       Al=torch.stack(Als))
-
-
-def _band_of_slab_lanes_fn(ell: BlockELL, plan: SlabPlan,
-                           dtype=torch.float32):
-    """``_band_of_slab_fn`` of a lane-batched BlockELL: s -> (lower, diag,
-    upper) of slab ``s`` in every lane, each (V, m, m)."""
-    V = ell.lanes
-    N, K, f, _ = ell.shape4
-    m, m_v = plan.m, plan.m_v
-    dev = ell.flat.device
-    blk = ell.flat.reshape(V, N, f, K, f).transpose(2, 3).to(dtype)
-    blk = torch.cat([blk.reshape(V, N * K, f, f),
-                     torch.zeros((V, 1, f, f), dtype=dtype, device=dev)],
-                    dim=1)
-    bidx = plan._index(dev)["bidx"]
-    eye_band = torch.cat(
-        [torch.zeros((m, m), dtype=dtype, device=dev),
-         torch.eye(m, dtype=dtype, device=dev),
-         torch.zeros((m, m), dtype=dtype, device=dev)], dim=1)
-
-    def band_of_slab(s: int):
-        B4 = blk[:, bidx[s]]                      # (V, m_v, 3m_v, f, f)
-        B = B4.permute(0, 1, 3, 2, 4).reshape(V, m, 3 * m)
-        n_pad = (s + 1) * m_v - plan.N
-        if n_pad > 0:
-            B = B.clone()
-            B[:, m - n_pad * f:] = eye_band[m - n_pad * f:]
-        return B[:, :, :m], B[:, :, m:2 * m], B[:, :, 2 * m:]
-
-    return band_of_slab
-
-
-def _inv_refined_lanes(A: torch.Tensor) -> torch.Tensor:
-    """``_inv_refined`` of each lane's (m, m) block of A (V, m, m), one
-    inverse call per lane: on the H100 one batched ``torch.linalg.inv`` of
-    three 918 x 918 f32 blocks takes 2.1x the time of three single calls
-    (``python3 chip_smoke.py --profile``), so the lanes take the
-    single-lane call and its Newton-Schulz pass, lane by lane."""
-    return torch.stack([_inv_refined(a) for a in A])
-
-
-def slab_factor_fused_lanes(ell: BlockELL, plan: SlabPlan,
-                            dtype=torch.float32) -> SlabFactors:
-    """``slab_factor_fused`` of V lanes: the same S sequential steps, the
-    band gathers and products of each one batched call over the lanes, the
-    refined m x m inverses one per lane (``_inv_refined_lanes``), in full
-    f32 under ``full_f32_precision``.  Factors are (V, S, m, m)."""
-    V, m, S = ell.lanes, plan.m, plan.S
-    band_of_slab = _band_of_slab_lanes_fn(ell, plan, dtype)
-    Cp_prev = torch.zeros((V, m, m), dtype=dtype, device=ell.flat.device)
-    Dinvs, Cps, Als = [], [], []
-    for s in range(S):
-        A, Bd, C = band_of_slab(s)
-        Dinv = _inv_refined_lanes(Bd - A @ Cp_prev)
-        Cp_prev = Dinv @ C
-        Dinvs.append(Dinv)
-        Cps.append(Cp_prev)
-        Als.append(A)
-    return SlabFactors(Dinv=torch.stack(Dinvs, 1), Cp=torch.stack(Cps, 1),
-                       Al=torch.stack(Als, 1))
-
-
-def slab_solve_lanes(factors: SlabFactors, d: torch.Tensor) -> torch.Tensor:
-    """``slab_solve`` of V lanes: factors (V, S, m, m), d (V, S, m)."""
-    Dinvs, Cps, Al = factors
-    S = d.shape[1]
-    dp = torch.zeros((d.shape[0], d.shape[2], 1), dtype=d.dtype,
-                     device=d.device)
-    dps = []
-    for s in range(S):
-        dp = Dinvs[:, s] @ (d[:, s, :, None] - Al[:, s] @ dp)
-        dps.append(dp)
-    x = torch.zeros_like(dp)
-    xs = [None] * S
-    for s in range(S - 1, -1, -1):
-        x = dps[s] - Cps[:, s] @ x
-        xs[s] = x
-    return torch.stack(xs, 1)[..., 0]
+    Cp = torch.zeros(ell.flat.shape[:-3] + (plan.m, plan.m), dtype=dtype,
+                     device=ell.flat.device)
+    factors = _eliminate((band_of_slab(s) for s in range(plan.S)), Cp)
+    return SlabFactors(*(torch.stack(t, -3) for t in factors))
 
 
 def slab_factor(lower: torch.Tensor, diag: torch.Tensor,
@@ -346,34 +283,34 @@ def slab_factor(lower: torch.Tensor, diag: torch.Tensor,
     """Block-Thomas forward elimination of given (S, m, m) bands (the
     unfused form of ``slab_factor_fused``)."""
     m = diag.shape[1]
-    Cp_prev = torch.zeros((m, m), dtype=diag.dtype, device=diag.device)
-    Dinvs, Cps = [], []
-    for A, Bd, C in zip(lower, diag, upper):
-        Dinv = _inv_refined(Bd - A @ Cp_prev)
-        Cp_prev = Dinv @ C
-        Dinvs.append(Dinv)
-        Cps.append(Cp_prev)
+    Cp = torch.zeros((m, m), dtype=diag.dtype, device=diag.device)
+    Dinvs, Cps, _ = _eliminate(zip(lower, diag, upper), Cp)
     return SlabFactors(Dinv=torch.stack(Dinvs), Cp=torch.stack(Cps),
                        Al=lower)
 
 
 def slab_solve(factors: SlabFactors, d: torch.Tensor) -> torch.Tensor:
     """Solve with precomputed factors; d, result: (S, m) — or (S, m, k)
-    for k simultaneous right-hand sides.  A forward and a backward sweep of
-    matrix-(multi)vector products."""
+    for k simultaneous right-hand sides; over lanes (V, S, m).  A forward
+    and a backward sweep of matrix-(multi)vector products."""
     Dinvs, Cps, Al = factors
-    S = d.shape[0]
-    dp = torch.zeros(d.shape[1:], dtype=d.dtype, device=d.device)
+    # the lanes take (V, m, 1) products where the single lane takes
+    # matrix-(multi)vector ones
+    lanes = Dinvs.dim() == 4
+    S = Dinvs.shape[-3]
+    dp = torch.zeros((d.shape[0], d.shape[2], 1) if lanes else d.shape[1:],
+                     dtype=d.dtype, device=d.device)
     dps = []
     for s in range(S):
-        dp = Dinvs[s] @ (d[s] - Al[s] @ dp)
+        dp = Dinvs[..., s, :, :] @ ((d[:, s, :, None] if lanes else d[s])
+                                    - Al[..., s, :, :] @ dp)
         dps.append(dp)
     x = torch.zeros_like(dp)
     xs = [None] * S
     for s in range(S - 1, -1, -1):
-        x = dps[s] - Cps[s] @ x
+        x = dps[s] - Cps[..., s, :, :] @ x
         xs[s] = x
-    return torch.stack(xs)
+    return torch.stack(xs, 1)[..., 0] if lanes else torch.stack(xs)
 
 
 class CRLevel(NamedTuple):
@@ -382,7 +319,8 @@ class CRLevel(NamedTuple):
     Odd-position slabs of this level are eliminated; even positions form
     the next (coarser) level.  ``L``/``U`` act on the even positions in
     the downward RHS pass; ``invBo``/``Ao``/``Co`` reconstruct the odd
-    solutions in the upward pass."""
+    solutions in the upward pass.  Over lanes each gains a leading lane
+    axis."""
 
     invBo: torch.Tensor   # (n_odd, m, m) inverses of the odd diagonals
     L: torch.Tensor       # (n_even, m, m) A_even @ invBo[left]  (row 0 = 0)
@@ -401,32 +339,34 @@ def _cr_level(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor):
 
     Returns the level record plus the (ceil(S/2), m, m) bands of the
     Schur complement on the even positions; the level's inversions are
-    one batched call.  Odd S is padded to even with a decoupled identity
-    row (A=C=0, B=I) at the tail, and odd/even positions are split by a
-    reshape, as in the reference."""
-    S, m = A.shape[0], A.shape[1]
+    one batched call (over lanes one call per lane, see ``_eliminate``).
+    Odd S is padded to even with a decoupled identity row (A=C=0, B=I) at
+    the tail, and odd/even positions are split by a reshape, as in the
+    reference."""
+    lead = A.shape[:-3]
+    S, m = A.shape[-3], A.shape[-1]
     if S % 2 == 1:   # pad: x_pad = d_pad, fully decoupled
-        eye = torch.eye(m, dtype=A.dtype, device=A.device)[None]
-        zpad = torch.zeros((1, m, m), dtype=A.dtype, device=A.device)
-        A = torch.cat([A, zpad])
-        B = torch.cat([B, eye])
-        C = torch.cat([C, zpad])
+        eye = eye_row(m, lead, A)
+        zpad = torch.zeros((*lead, 1, m, m), dtype=A.dtype, device=A.device)
+        A = torch.cat([A, zpad], -3)
+        B = torch.cat([B, eye], -3)
+        C = torch.cat([C, zpad], -3)
         S += 1
     h = S // 2
-    Ae, Ao = A.reshape(h, 2, m, m).unbind(1)
-    Be, Bo = B.reshape(h, 2, m, m).unbind(1)
-    Ce, Co = C.reshape(h, 2, m, m).unbind(1)
-    invBo = _inv_refined(Bo)
-    zero = torch.zeros((1, m, m), dtype=A.dtype, device=A.device)
+    Ae, Ao = A.reshape(*lead, h, 2, m, m).unbind(-3)
+    Be, Bo = B.reshape(*lead, h, 2, m, m).unbind(-3)
+    Ce, Co = C.reshape(*lead, h, 2, m, m).unbind(-3)
+    invBo = lane_by_lane(_inv_refined, bool(lead), Bo)
+    zero = torch.zeros((*lead, 1, m, m), dtype=A.dtype, device=A.device)
 
     # L_j = A[2j] @ invBo[j-1]  (j >= 1; slab 0 has no left neighbor)
-    L = torch.cat([zero, Ae[1:] @ invBo[:h - 1]])
+    L = torch.cat([zero, Ae[..., 1:, :, :] @ invBo[..., :h - 1, :, :]], -3)
     # U_j = C[2j] @ invBo[j]    (the padded tail's Ce row is zero)
     U = Ce @ invBo
 
-    Co_prev = torch.cat([zero, Co[:h - 1]])       # C[2j-1]
+    Co_prev = torch.cat([zero, Co[..., :h - 1, :, :]], -3)       # C[2j-1]
     B2 = Be - L @ Co_prev - U @ Ao
-    A2 = -torch.cat([zero, L[1:] @ Ao[:h - 1]])
+    A2 = -torch.cat([zero, L[..., 1:, :, :] @ Ao[..., :h - 1, :, :]], -3)
     C2 = -(U @ Co)
     return CRLevel(invBo=invBo, L=L, U=U, Ao=Ao, Co=Co), (A2, B2, C2)
 
@@ -438,10 +378,11 @@ def slab_factor_cr(lower: torch.Tensor, diag: torch.Tensor,
     inversions (~3x the matmul FLOPs)."""
     levels = []
     A, B, C = lower, diag, upper
-    while A.shape[0] > 1:
+    while A.shape[-3] > 1:
         lvl, (A, B, C) = _cr_level(A, B, C)
         levels.append(lvl)
-    return CRFactors(levels=tuple(levels), root_inv=_inv_refined(B[0]))
+    return CRFactors(levels=tuple(levels), root_inv=lane_by_lane(
+        _inv_refined, A.dim() == 4, B[..., 0, :, :]))
 
 
 def slab_factor_cr_fused(ell: BlockELL, plan: SlabPlan,
@@ -449,125 +390,55 @@ def slab_factor_cr_fused(ell: BlockELL, plan: SlabPlan,
     """Band relayout (per-slab gather, see ``_band_of_slab_fn``) followed
     by the cyclic-reduction factorization."""
     band_of_slab = _band_of_slab_fn(ell, plan, dtype)
-    lo, di, up = (torch.stack(b) for b in
+    lo, di, up = (torch.stack(b, -3) for b in
                   zip(*(band_of_slab(s) for s in range(plan.S))))
     return slab_factor_cr(lo, di, up)
 
 
+def _level_mm(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x``; over lanes (A (V, h, m, m)) one batched product, but lane
+    by lane where h == 1, where the single-lane call (a batch of one)
+    takes another product."""
+    return lane_by_lane(torch.matmul, A.dim() == 4 and A.shape[1] == 1, A, x)
+
+
 def slab_solve_cr(factors: CRFactors, d: torch.Tensor) -> torch.Tensor:
-    """Solve with a CR factorization; d, result: (S, m) or (S, m, k).
-    2*ceil(log2 S) batched stages."""
-    vec = d.dim() == 2
+    """Solve with a CR factorization; d, result: (S, m) or (S, m, k); over
+    lanes (V, S, m).  2*ceil(log2 S) batched stages."""
+    lanes = factors.root_inv.dim() == 3
+    vec = d.dim() == 2 + lanes
     if vec:
         d = d[..., None]
+    lead = d.shape[:-3]
     stack = []
     for lvl in factors.levels:
-        S_l = d.shape[0]
+        S_l = d.shape[-3]
         if S_l % 2 == 1:
-            d = torch.cat([d, torch.zeros((1,) + tuple(d.shape[1:]),
-                                          dtype=d.dtype, device=d.device)])
-        h = d.shape[0] // 2
-        de, do = d.reshape(h, 2, *d.shape[1:]).unbind(1)
-        zero = torch.zeros((1,) + tuple(d.shape[1:]), dtype=d.dtype,
+            d = torch.cat([d, torch.zeros((*lead, 1) + tuple(d.shape[-2:]),
+                                          dtype=d.dtype, device=d.device)],
+                          -3)
+        h = d.shape[-3] // 2
+        de, do = d.reshape(*lead, h, 2, *d.shape[-2:]).unbind(-3)
+        zero = torch.zeros((*lead, 1) + tuple(d.shape[-2:]), dtype=d.dtype,
                            device=d.device)
-        do_prev = torch.cat([zero, do[:h - 1]])
+        do_prev = torch.cat([zero, do[..., :h - 1, :, :]], -3)
         stack.append((do, S_l))
-        d = de - lvl.L @ do_prev - lvl.U @ do
-    x = (factors.root_inv @ d[0])[None]           # (1, m, k)
+        d = de - _level_mm(lvl.L, do_prev) - _level_mm(lvl.U, do)
+    # the root solve lane by lane, the single lane's own product
+    x = lane_by_lane(torch.matmul, lanes, factors.root_inv,
+                     d[..., 0, :, :])[..., None, :, :]        # (1, m, k)
     for lvl, (do, S_l) in zip(reversed(factors.levels), reversed(stack)):
-        h = do.shape[0]
-        zero = torch.zeros((1,) + tuple(x.shape[1:]), dtype=x.dtype,
+        h = do.shape[-3]
+        zero = torch.zeros((*lead, 1) + tuple(x.shape[-2:]), dtype=x.dtype,
                            device=x.device)
-        xe_next = torch.cat([x[1:], zero])
-        xo = lvl.invBo @ (do - lvl.Ao @ x - lvl.Co @ xe_next)
-        x = torch.stack([x, xo], dim=1).reshape(2 * h, *x.shape[1:])
+        xe_next = torch.cat([x[..., 1:, :, :], zero], -3)
+        xo = _level_mm(lvl.invBo, do - _level_mm(lvl.Ao, x)
+                       - _level_mm(lvl.Co, xe_next))
+        x = torch.stack([x, xo], dim=-3).reshape(*lead, 2 * h,
+                                                 *x.shape[-2:])
         if S_l % 2 == 1:
-            x = x[:S_l]
+            x = x[..., :S_l, :, :]
     return x[..., 0] if vec else x
-
-
-def _cr_level_lanes(A: torch.Tensor, B: torch.Tensor, C: torch.Tensor):
-    """``_cr_level`` of V lanes: bands (V, S, m, m); the level's products
-    one batched call over the lanes, its refined inverses one call per
-    lane (``_inv_refined_lanes``), each lane's as the single lane's."""
-    V, S, m = A.shape[0], A.shape[1], A.shape[2]
-    if S % 2 == 1:
-        eye = torch.eye(m, dtype=A.dtype, device=A.device).expand(V, 1, m, m)
-        zpad = torch.zeros((V, 1, m, m), dtype=A.dtype, device=A.device)
-        A = torch.cat([A, zpad], 1)
-        B = torch.cat([B, eye], 1)
-        C = torch.cat([C, zpad], 1)
-        S += 1
-    h = S // 2
-    Ae, Ao = A.reshape(V, h, 2, m, m).unbind(2)
-    Be, Bo = B.reshape(V, h, 2, m, m).unbind(2)
-    Ce, Co = C.reshape(V, h, 2, m, m).unbind(2)
-    invBo = _inv_refined_lanes(Bo)
-    zero = torch.zeros((V, 1, m, m), dtype=A.dtype, device=A.device)
-    L = torch.cat([zero, Ae[:, 1:] @ invBo[:, :h - 1]], 1)
-    U = Ce @ invBo
-    Co_prev = torch.cat([zero, Co[:, :h - 1]], 1)
-    B2 = Be - L @ Co_prev - U @ Ao
-    A2 = -torch.cat([zero, L[:, 1:] @ Ao[:, :h - 1]], 1)
-    C2 = -(U @ Co)
-    return CRLevel(invBo=invBo, L=L, U=U, Ao=Ao, Co=Co), (A2, B2, C2)
-
-
-def slab_factor_cr_fused_lanes(ell: BlockELL, plan: SlabPlan,
-                               dtype=torch.float32) -> CRFactors:
-    """``slab_factor_cr_fused`` of V lanes: every factor gains the lane
-    axis ((V, h, m, m) per level, ``root_inv`` (V, m, m))."""
-    band_of_slab = _band_of_slab_lanes_fn(ell, plan, dtype)
-    A, B, C = (torch.stack(b, 1) for b in
-               zip(*(band_of_slab(s) for s in range(plan.S))))
-    levels = []
-    while A.shape[1] > 1:
-        lvl, (A, B, C) = _cr_level_lanes(A, B, C)
-        levels.append(lvl)
-    return CRFactors(levels=tuple(levels),
-                     root_inv=_inv_refined_lanes(B[:, 0]))
-
-
-def _mm_lanes(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``A @ x`` of V lanes, A (V, h, m, m), x (V, h, m, k): one batched
-    product, but lane by lane where h == 1, where the single-lane call
-    (a batch of one) takes another product."""
-    if A.shape[1] > 1:
-        return A @ x
-    return torch.stack([a @ b for a, b in zip(A, x)])
-
-
-def slab_solve_cr_lanes(factors: CRFactors, d: torch.Tensor) -> torch.Tensor:
-    """``slab_solve_cr`` of V lanes: d (V, S, m) -> (V, S, m)."""
-    V = d.shape[0]
-    d = d[..., None]
-    stack = []
-    for lvl in factors.levels:
-        S_l = d.shape[1]
-        if S_l % 2 == 1:
-            d = torch.cat([d, torch.zeros((V, 1) + tuple(d.shape[2:]),
-                                          dtype=d.dtype, device=d.device)], 1)
-        h = d.shape[1] // 2
-        de, do = d.reshape(V, h, 2, *d.shape[2:]).unbind(2)
-        zero = torch.zeros((V, 1) + tuple(d.shape[2:]), dtype=d.dtype,
-                           device=d.device)
-        do_prev = torch.cat([zero, do[:, :h - 1]], 1)
-        stack.append((do, S_l))
-        d = de - _mm_lanes(lvl.L, do_prev) - _mm_lanes(lvl.U, do)
-    # the root solve lane by lane, ``slab_solve_cr``'s own product
-    x = torch.stack([ri @ dl for ri, dl in zip(factors.root_inv,
-                                               d[:, 0])])[:, None]
-    for lvl, (do, S_l) in zip(reversed(factors.levels), reversed(stack)):
-        h = do.shape[1]
-        zero = torch.zeros((V, 1) + tuple(x.shape[2:]), dtype=x.dtype,
-                           device=x.device)
-        xe_next = torch.cat([x[:, 1:], zero], 1)
-        xo = _mm_lanes(lvl.invBo, do - _mm_lanes(lvl.Ao, x)
-                       - _mm_lanes(lvl.Co, xe_next))
-        x = torch.stack([x, xo], dim=2).reshape(V, 2 * h, *x.shape[2:])
-        if S_l % 2 == 1:
-            x = x[:, :S_l]
-    return x[..., 0]
 
 
 def _solver_of(factors):
@@ -596,66 +467,18 @@ def slab_prepare(ell: BlockELL, plan: SlabPlan,
 
     mode='thomas': sequential block-Thomas (S sequential m x m
     inversions); mode='cr': slab-granular block cyclic reduction (batched
-    inversions, ceil(log2 S) levels) — see slab_factor_cr."""
+    inversions, ceil(log2 S) levels) — see slab_factor_cr.  A lane-batched
+    BlockELL is equilibrated lane by lane and laid out for the kernel's
+    lane axis (``ops.ell_spmv.lane_aligned``: every lane's matrix on a
+    16-byte boundary)."""
     Dinv0 = block_inv(ell.diag_blocks())
     ell_eq = ell.scale_rows(Dinv0)
+    if ell.lanes:
+        ell_eq = BlockELL(ell_eq.adj, lane_aligned(ell_eq.flat),
+                          ell_eq.diag_slot)
     factor = slab_factor_cr_fused if mode == "cr" else slab_factor_fused
     return SlabPrepared(ell_eq=ell_eq, Dinv0=Dinv0,
                         factors=factor(ell_eq, plan))
-
-
-@span("linear.factor")
-def slab_prepare_lanes(ell: BlockELL, plan: SlabPlan,
-                       mode: str = "thomas") -> SlabPrepared:
-    """``slab_prepare`` of a lane-batched BlockELL: per-lane f64
-    equilibration, the f32 factorization of every lane at once (``mode``
-    'thomas' or 'cr'), and the equilibrated matrices laid out for the
-    kernel's lane axis (``ops.ell_spmv.lane_aligned``: every lane's matrix
-    on a 16-byte boundary)."""
-    from gmpnp_tpu_torch.ops.ell_spmv import lane_aligned
-
-    Dinv0 = block_inv(ell.diag_blocks())
-    ell_eq = ell.scale_rows(Dinv0)
-    ell_eq = BlockELL(ell_eq.adj, lane_aligned(ell_eq.flat),
-                      ell_eq.diag_slot)
-    factor = (slab_factor_cr_fused_lanes if mode == "cr"
-              else slab_factor_fused_lanes)
-    return SlabPrepared(ell_eq=ell_eq, Dinv0=Dinv0,
-                        factors=factor(ell_eq, plan))
-
-
-@span("linear.solve")
-def slab_apply_lanes(
-    prep: SlabPrepared,
-    rhs: torch.Tensor,
-    plan: SlabPlan,
-    tol: float = 1.0e-8,
-    max_refine: int = 40,
-    active=None,
-) -> SlabSolveResult:
-    """``slab_apply`` of V lanes (from ``slab_prepare_lanes``): rhs
-    (V, N, f); f64 GMRES over lanes (``gmres_lanes``: each lane stops on
-    its own) whose matvec is one launch of the kernel's lane axis, and the
-    f32 banded solve of every lane.  ``active`` (V,) bool leaves the other
-    lanes out.  ``resnorm``, ``iters`` and ``converged`` are (V,) arrays."""
-    from gmpnp_tpu_torch.solve.linear import gmres_lanes
-
-    out_dtype = rhs.dtype
-    b = torch.einsum("vnfg,vng->vnf", prep.Dinv0, rhs)
-
-    solver = (slab_solve_cr_lanes if isinstance(prep.factors, CRFactors)
-              else slab_solve_lanes)
-
-    def solve32(r64):
-        ds = plan.to_slabs_lanes(r64.to(torch.float32))
-        xs = solver(prep.factors, ds)
-        return plan.from_slabs_lanes(xs).to(out_dtype)
-
-    res = gmres_lanes(prep.ell_eq.matvec, b, Minv=solve32, tol=tol,
-                      restart=min(max_refine, 30), maxiter=max_refine,
-                      active=active)
-    return SlabSolveResult(x=res.x, resnorm=res.resnorm, iters=res.iters,
-                           converged=res.converged)
 
 
 @span("linear.solve")
@@ -665,23 +488,28 @@ def slab_apply(
     plan: SlabPlan,
     tol: float = 1.0e-8,
     max_refine: int = 40,
+    active=None,
 ) -> SlabSolveResult:
     """Solve ``ell @ x = rhs`` with a prepared factorization: f64 GMRES on
     the equilibrated system (matvec ``BlockELL.matvec``, the f64 kernel on
-    CUDA), preconditioned by the f32 banded solve."""
-    from gmpnp_tpu_torch.solve.linear import gmres
+    CUDA), preconditioned by the f32 banded solve.
 
+    Over lanes (rhs (V, N, f)) the GMRES is ``gmres_lanes``: each lane
+    stops on its own, its matvec one launch of the kernel's lane axis, and
+    ``active`` (V,) bool leaves the other lanes out; ``resnorm``,
+    ``iters`` and ``converged`` are (V,) arrays."""
     out_dtype = rhs.dtype
-    b = torch.einsum("nfg,ng->nf", prep.Dinv0, rhs)
+    b = block_mv(prep.Dinv0, rhs)
     solver = _solver_of(prep.factors)
+    krylov = partial(gmres_lanes, active=active) if rhs.dim() == 3 else gmres
 
     def solve32(r64):
         ds = plan.to_slabs(r64.to(torch.float32))
         xs = solver(prep.factors, ds)
         return plan.from_slabs(xs).to(out_dtype)
 
-    res = gmres(prep.ell_eq.matvec, b, Minv=solve32, tol=tol,
-                restart=min(max_refine, 30), maxiter=max_refine)
+    res = krylov(prep.ell_eq.matvec, b, Minv=solve32, tol=tol,
+                 restart=min(max_refine, 30), maxiter=max_refine)
     return SlabSolveResult(x=res.x, resnorm=res.resnorm, iters=res.iters,
                            converged=res.converged)
 
@@ -707,11 +535,9 @@ def slab_apply_f32(
     GMRES loop; each GMRES iteration is one kernel launch plus the banded
     solve.
     """
-    from gmpnp_tpu_torch.solve.linear import gmres
-
     out_dtype = rhs.dtype
     Dinv32 = prep.Dinv0.to(torch.float32)
-    b = torch.einsum("nfg,ng->nf", Dinv32, rhs.to(torch.float32))
+    b = block_mv(Dinv32, rhs.to(torch.float32))
     # hoisted once per call: the f32 copy the kernel reads
     flat32 = prep.ell_eq.flat.to(torch.float32).contiguous()
     adj = prep.ell_eq.adj

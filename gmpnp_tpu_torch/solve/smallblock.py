@@ -9,6 +9,9 @@ factorization magnitude is clamped to +-RANGE_LIM.  Keeping the algorithm
 slab solver digit-for-digit with the reference.  ``block_inv`` is the
 hand-written kernel of ``ops.block_inv`` on CUDA tensors (one launch per
 call) and its plain version on CPU tensors.
+
+Also the helpers the solvers share for an optional leading lane axis:
+``block_mv``, ``eye_row`` and ``lane_by_lane``.
 """
 
 from __future__ import annotations
@@ -27,12 +30,40 @@ def block_inv(A: torch.Tensor) -> torch.Tensor:
     return _block_inv(A.contiguous())
 
 
+def block_mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Batched (..., f, f) @ (..., f)."""
+    return torch.einsum("...ij,...j->...i", A, x)
+
+
+def eye_row(f: int, lead: tuple, like: torch.Tensor) -> torch.Tensor:
+    """An identity block (1, f, f), or one per lane (*lead, 1, f, f), in
+    ``like``'s dtype and device: views of one eye."""
+    eye = torch.eye(f, dtype=like.dtype, device=like.device)
+    return eye.expand(*lead, 1, f, f) if lead else eye[None]
+
+
+def lane_by_lane(fn, lanes: bool, *xs):
+    """``fn(*xs)``; or, where ``lanes`` is true, ``fn`` of each lane's slices
+    of ``xs`` (tensors with a leading lane axis, or sequences of per-lane
+    values), lane after lane: tensor results stacked on a new lane axis,
+    any other result as a tuple of the lanes'.
+
+    For the lane forms of the solvers, where one batched call over the
+    lanes would round otherwise, on the card too, than the single-lane
+    call does for each lane alone: each lane then keeps its single-lane
+    bits."""
+    if not lanes:
+        return fn(*xs)
+    out = [fn(*x) for x in zip(*xs)]
+    return torch.stack(out) if isinstance(out[0], torch.Tensor) else tuple(out)
+
+
 def block_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched solve A x = b for (..., f, f) blocks; b: (..., f) or
     (..., f, k).  Uses the explicit Gauss-Jordan inverse."""
     Ainv = block_inv(A)
     if b.dim() == A.dim() - 1:
-        return torch.einsum("...ij,...j->...i", Ainv, b)
+        return block_mv(Ainv, b)
     return Ainv @ b
 
 

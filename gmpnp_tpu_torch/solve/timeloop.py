@@ -44,23 +44,16 @@ from gmpnp_tpu_torch.solve.linear import (
     bicgstab,
     bicgstab_lanes,
     block_jacobi_preconditioner,
-    block_jacobi_preconditioner_lanes,
     block_tridiag_apply_cr,
     block_tridiag_factor_cr,
     block_tridiag_from_ell,
-    block_tridiag_from_ell_lanes,
     block_tridiag_solve_cr,
-    block_tridiag_solve_cr_lanes,
     block_tridiag_solve_thomas,
-    block_tridiag_solve_thomas_lanes,
     dense_solve,
-    dense_solve_lanes,
     gmres,
     gmres_lanes,
     multicolor_ssor_preconditioner,
-    multicolor_ssor_preconditioner_lanes,
     tridiag_mp_solve,
-    tridiag_mp_solve_lanes,
 )
 from gmpnp_tpu_torch.solve.newton import newton_solve, newton_solve_lanes
 from gmpnp_tpu_torch.solve.slab import (
@@ -69,9 +62,7 @@ from gmpnp_tpu_torch.solve.slab import (
     slab_apply,
     slab_apply_f32,
     slab_direct_solve,
-    slab_apply_lanes,
     slab_prepare,
-    slab_prepare_lanes,
 )
 from gmpnp_tpu_torch.solve.smallblock import block_inv
 from gmpnp_tpu_torch.sync import to_host
@@ -412,13 +403,13 @@ def make_linear_solver_lanes(space: FemSpace, form: WeakForm,
             r = torch.einsum("vnfg,vng->vnf", Dinv, r).to(torch.float32)
         ell = BlockELL(ell.adj, lane_aligned(ell.flat), ell.diag_slot)
         if cfg.precond == "ssor":
-            pc = multicolor_ssor_preconditioner_lanes(
+            pc = multicolor_ssor_preconditioner(
                 ell, space.colors, sweeps=cfg.ssor_sweeps)
         elif cfg.precond == "amg":
-            from gmpnp_tpu_torch.solve.amg import amg_preconditioner_lanes
-            pc = amg_preconditioner_lanes(ell, amg_plan)
+            from gmpnp_tpu_torch.solve.amg import amg_preconditioner
+            pc = amg_preconditioner(ell, amg_plan)
         else:
-            pc = block_jacobi_preconditioner_lanes(ell)
+            pc = block_jacobi_preconditioner(ell)
         if cfg.kind == "gmres":
             res = gmres_lanes(ell.matvec, r, Minv=pc, tol=cfg.tol,
                               atol=cfg.atol, restart=cfg.restart,
@@ -435,8 +426,7 @@ def make_linear_solver_lanes(space: FemSpace, form: WeakForm,
 
         if cfg.kind == "slab_direct":
             def prepare(u):
-                prep = slab_prepare_lanes(assemble(u), plan,
-                                          mode=cfg.slab_mode)
+                prep = slab_prepare(assemble(u), plan, mode=cfg.slab_mode)
                 count(factors, prep.Dinv0.shape[0])
                 return prep
 
@@ -445,9 +435,8 @@ def make_linear_solver_lanes(space: FemSpace, form: WeakForm,
 
             def lin_slab(u, r, active):
                 prep = frozen if frozen is not None else prepare(u)
-                res = slab_apply_lanes(prep, r, plan, tol=cfg.tol,
-                                       max_refine=cfg.max_refine,
-                                       active=active)
+                res = slab_apply(prep, r, plan, tol=cfg.tol,
+                                 max_refine=cfg.max_refine, active=active)
                 return res.x, res.iters
 
             return lin_slab
@@ -460,17 +449,17 @@ def make_linear_solver_lanes(space: FemSpace, form: WeakForm,
             count(factors, r.shape[0])
             if cfg.kind == "tridiag_cr":
                 if cfg.solve_dtype == "f32":
-                    res = tridiag_mp_solve_lanes(
-                        ell, r, tol=cfg.tol, max_refine=cfg.max_refine,
-                        active=active)
+                    res = tridiag_mp_solve(ell, r, tol=cfg.tol,
+                                           max_refine=cfg.max_refine,
+                                           active=active)
                     return res.x, res.iters
-                return block_tridiag_solve_cr_lanes(
-                    *block_tridiag_from_ell_lanes(ell), r), none
+                return block_tridiag_solve_cr(*block_tridiag_from_ell(ell),
+                                              r), none
             if cfg.kind == "tridiag_thomas":
-                return block_tridiag_solve_thomas_lanes(
-                    *block_tridiag_from_ell_lanes(ell), r), none
+                return block_tridiag_solve_thomas(
+                    *block_tridiag_from_ell(ell), r), none
             if cfg.kind == "dense":
-                return dense_solve_lanes(ell, r), none
+                return dense_solve(ell, r), none
 
         return lin
 

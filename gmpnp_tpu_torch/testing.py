@@ -113,7 +113,7 @@ def sequential_segment_sum(values: torch.Tensor, order: torch.Tensor,
                            end: torch.Tensor) -> torch.Tensor:
     """The sum of each segment in sorted order, left to right from 0.0, as
     the torch loop ``acc = acc + z[table[:, j]]`` over the columns of a
-    padded gather table (``parallel/shard.py::_gather_table``'s layout:
+    padded gather table (``solve/amg.py::segment_table``'s layout:
     each row's positions in sorted order, padded with the zero row ``z``
     appends).  values (..., M, d) -> (..., n_dest, d)."""
     counts = (end - start).cpu().numpy()

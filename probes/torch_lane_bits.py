@@ -1,5 +1,5 @@
-"""Each lane function of the batched sweeps against its single-lane
-function on the same system, lane by lane: bitwise equal or not, and the
+"""Each solver of the batched sweeps over lanes against its single-lane
+calls on the same system, lane by lane: bitwise equal or not, and the
 largest difference.
 
     python probes/torch_lane_bits.py [--device cuda] [--small]
@@ -104,13 +104,13 @@ def main(argv=None):
     colors = prog.space.colors
     plan = amg.AMGPlan.build(np.asarray(prog.space.adj), 9)
     pcs = {
-        "block_jacobi": (linear.block_jacobi_preconditioner_lanes(ella),
+        "block_jacobi": (linear.block_jacobi_preconditioner(ella),
                          [linear.block_jacobi_preconditioner(o)
                           for o in one]),
-        "ssor": (linear.multicolor_ssor_preconditioner_lanes(ella, colors),
+        "ssor": (linear.multicolor_ssor_preconditioner(ella, colors),
                  [linear.multicolor_ssor_preconditioner(o, colors)
                   for o in one]),
-        "amg": (amg.amg_preconditioner_lanes(ella, plan),
+        "amg": (amg.amg_preconditioner(ella, plan),
                 [amg.amg_preconditioner(o, plan) for o in one]),
     }
     for name, (pl, ps) in pcs.items():
@@ -134,30 +134,30 @@ def main(argv=None):
                              np.asarray(prog.space.points)[:, -1], 9,
                              np.asarray(prog.space.diag_slot))
     for mode in ("thomas", "cr"):
-        pl = slab.slab_prepare_lanes(ell, sp, mode=mode)
+        pl = slab.slab_prepare(ell, sp, mode=mode)
         p1 = [slab.slab_prepare(o, sp, mode=mode) for o in one]
-        res = slab.slab_apply_lanes(pl, r, sp, tol=1e-10, max_refine=40)
+        res = slab.slab_apply(pl, r, sp, tol=1e-10, max_refine=40)
         singles = [slab.slab_apply(p, r[v], sp, tol=1e-10, max_refine=40)
                    for v, p in enumerate(p1)]
         report(f"pore slab {mode} apply x", res.x, [o.x for o in singles])
         print(f"  iters {res.iters.tolist()} vs "
               f"{[o.iters for o in singles]}", flush=True)
     if args.small:
-        report("pore dense", linear.dense_solve_lanes(ell, r),
+        report("pore dense", linear.dense_solve(ell, r),
                [linear.dense_solve(o, r[v]) for v, o in enumerate(one)])
 
     prog, ell, r = edl_system(dev, args.small)
     one = [BlockELL(ell.adj, ell.flat[v], ell.diag_slot) for v in range(V)]
-    bands = linear.block_tridiag_from_ell_lanes(ell)
+    bands = linear.block_tridiag_from_ell(ell)
     singles = [linear.block_tridiag_from_ell(o) for o in one]
-    report("edl cr solve", linear.block_tridiag_solve_cr_lanes(*bands, r),
+    report("edl cr solve", linear.block_tridiag_solve_cr(*bands, r),
            [linear.block_tridiag_solve_cr(*b, r[v])
             for v, b in enumerate(singles)])
     report("edl thomas solve",
-           linear.block_tridiag_solve_thomas_lanes(*bands, r),
+           linear.block_tridiag_solve_thomas(*bands, r),
            [linear.block_tridiag_solve_thomas(*b, r[v])
             for v, b in enumerate(singles)])
-    res = linear.tridiag_mp_solve_lanes(ell, r, tol=1e-8, max_refine=40)
+    res = linear.tridiag_mp_solve(ell, r, tol=1e-8, max_refine=40)
     mp = [linear.tridiag_mp_solve(o, r[v], tol=1e-8, max_refine=40)
           for v, o in enumerate(one)]
     report("edl tridiag_mp_solve x", res.x, [o.x for o in mp])

@@ -1,5 +1,6 @@
-"""The lane axis of the port's batched sweeps, module by module: each lane
-function against V calls of its single-lane counterpart on the same
+"""The lane axis of the port's batched sweeps, module by module: each
+function's lane form (a leading lane axis, or the ``*_lanes`` Krylov and
+Newton solvers) against V calls of its single-lane form on the same
 seeded inputs.
 
 Tolerances, each with its reason:
@@ -118,9 +119,9 @@ def _tridiag_lanes(V, N, f, seed=7):
 
 def test_cr_over_lanes_matches_single_lanes():
     lo, di, up, rhs = _tridiag_lanes(3, 37, 7)
-    x = linear.block_tridiag_solve_cr_lanes(lo, di, up, rhs)
-    fac = linear.block_tridiag_factor_cr_lanes(lo, di, up)
-    xa = linear.block_tridiag_apply_cr_lanes(fac, rhs)
+    x = linear.block_tridiag_solve_cr(lo, di, up, rhs)
+    fac = linear.block_tridiag_factor_cr(lo, di, up)
+    xa = linear.block_tridiag_apply_cr(fac, rhs)
     for v in range(3):
         want = linear.block_tridiag_solve_cr(lo[v], di[v], up[v], rhs[v])
         assert _rel(x[v], want) <= 1e-13
@@ -136,7 +137,7 @@ def test_tridiag_from_lane_ell_matches_single():
     flat = torch.as_tensor(rng.normal(size=(V, N, f, 3 * f)))
     diag_slot = torch.as_tensor(np.where(np.arange(N) == 0, 0, 1))
     ell = BlockELL(torch.as_tensor(adj), flat, diag_slot)
-    bands = linear.block_tridiag_from_ell_lanes(ell)
+    bands = linear.block_tridiag_from_ell(ell)
     for v in range(V):
         one = linear.block_tridiag_from_ell(
             BlockELL(ell.adj, flat[v], diag_slot))
@@ -224,10 +225,10 @@ def test_slab_over_lanes_matches_single_lanes(pore_lanes):
     plan = slab.SlabPlan.build(
         np.asarray(prog.space.adj), np.asarray(prog.space.points)[:, -1],
         prog.space.n_fields, np.asarray(prog.space.diag_slot))
-    prep = slab.slab_prepare_lanes(ell, plan)
-    res = slab.slab_apply_lanes(prep, r, plan, tol=1e-12, max_refine=40)
-    d = plan.to_slabs_lanes(r.to(torch.float32))
-    z = plan.from_slabs_lanes(slab.slab_solve_lanes(prep.factors, d))
+    prep = slab.slab_prepare(ell, plan)
+    res = slab.slab_apply(prep, r, plan, tol=1e-12, max_refine=40)
+    d = plan.to_slabs(r.to(torch.float32))
+    z = plan.from_slabs(slab.slab_solve(prep.factors, d))
     for v in range(2):
         one_ell = BlockELL(ell.adj, ell.flat[v], ell.diag_slot)
         p1 = slab.slab_prepare(one_ell, plan)
@@ -315,7 +316,7 @@ def test_edl_lane_theta_per_lane_fluxes():
 
 def test_thomas_over_lanes_matches_single_lanes():
     lo, di, up, rhs = _tridiag_lanes(3, 37, 7)
-    x = linear.block_tridiag_solve_thomas_lanes(lo, di, up, rhs)
+    x = linear.block_tridiag_solve_thomas(lo, di, up, rhs)
     for v in range(3):
         want = linear.block_tridiag_solve_thomas(lo[v], di[v], up[v], rhs[v])
         assert _rel(x[v], want) <= 1e-12
@@ -344,7 +345,7 @@ def test_tridiag_mp_solve_over_lanes_matches_single_lanes():
     r = bc.apply_to_residual(prog.space.residual_lanes(prog.form, U, Up,
                                                        theta), U)
     active = np.array([True, False, True])
-    res = linear.tridiag_mp_solve_lanes(ell, r, tol=1e-10, active=active)
+    res = linear.tridiag_mp_solve(ell, r, tol=1e-10, active=active)
     assert res.iters[1] == 0 and float(res.x[1].abs().max()) == 0.0
     for v in (0, 2):
         one = linear.tridiag_mp_solve(BlockELL(ell.adj, ell.flat[v],
@@ -364,13 +365,13 @@ def _pc_pairs(prog, ell):
     colors = prog.space.colors
     plan = amg.AMGPlan.build(np.asarray(prog.space.adj), prog.space.n_fields)
     return one, [
-        ("block_jacobi", linear.block_jacobi_preconditioner_lanes(ell),
+        ("block_jacobi", linear.block_jacobi_preconditioner(ell),
          [linear.block_jacobi_preconditioner(o) for o in one]),
-        ("ssor", linear.multicolor_ssor_preconditioner_lanes(ell, colors,
+        ("ssor", linear.multicolor_ssor_preconditioner(ell, colors,
                                                              sweeps=2),
          [linear.multicolor_ssor_preconditioner(o, colors, sweeps=2)
           for o in one]),
-        ("amg", amg.amg_preconditioner_lanes(ell, plan),
+        ("amg", amg.amg_preconditioner(ell, plan),
          [amg.amg_preconditioner(o, plan) for o in one]),
     ]
 
@@ -440,7 +441,7 @@ def test_amg_levels_over_lanes_match_single_lanes(pore_lanes):
 
     prog, bc, U, theta, ell, r = pore_lanes
     plan = amg.AMGPlan.build(np.asarray(prog.space.adj), prog.space.n_fields)
-    vals = amg.amg_prepare_lanes(ell, plan)
+    vals = amg.amg_prepare(ell, plan)
     for v in range(2):
         one = amg.amg_prepare(BlockELL(ell.adj, ell.flat[v], ell.diag_slot),
                               plan)
@@ -456,10 +457,10 @@ def test_slab_cr_over_lanes_matches_single_lanes(pore_lanes):
     plan = slab.SlabPlan.build(
         np.asarray(prog.space.adj), np.asarray(prog.space.points)[:, -1],
         prog.space.n_fields, np.asarray(prog.space.diag_slot))
-    prep = slab.slab_prepare_lanes(ell, plan, mode="cr")
-    res = slab.slab_apply_lanes(prep, r, plan, tol=1e-12, max_refine=40)
-    d = plan.to_slabs_lanes(r.to(torch.float32))
-    z = slab.slab_solve_cr_lanes(prep.factors, d)
+    prep = slab.slab_prepare(ell, plan, mode="cr")
+    res = slab.slab_apply(prep, r, plan, tol=1e-12, max_refine=40)
+    d = plan.to_slabs(r.to(torch.float32))
+    z = slab.slab_solve_cr(prep.factors, d)
     for v in range(2):
         p1 = slab.slab_prepare(BlockELL(ell.adj, ell.flat[v], ell.diag_slot),
                                plan, mode="cr")
@@ -476,7 +477,7 @@ def test_slab_cr_over_lanes_matches_single_lanes(pore_lanes):
 
 def test_dense_over_lanes_matches_single_lanes(pore_lanes):
     prog, bc, U, theta, ell, r = pore_lanes
-    x = linear.dense_solve_lanes(ell, r)
+    x = linear.dense_solve(ell, r)
     dense = ell.to_dense()
     for v in range(2):
         one = BlockELL(ell.adj, ell.flat[v], ell.diag_slot)

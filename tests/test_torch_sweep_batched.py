@@ -178,7 +178,7 @@ def test_carried_edl_keeps_lanes_one_at_a_time(monkeypatch):
 def test_batched_lanes_of_a_kind_without_lane_solver():
     """The EDL's mixed-precision ``tridiag_mp_solve`` (a kind that once ran
     each lane's own single-lane solver inside the batched Newton) runs as
-    one lane-batched solve, ``solve.linear.tridiag_mp_solve_lanes``: the
+    one lane-batched solve, ``solve.linear.tridiag_mp_solve`` over lanes: the
     f32 CR factor and apply of every lane at once under GMRES over the
     lanes.  On the CPU each lane takes its single-lane arithmetic, so the
     lanes equal their chunk=0 runs to the last digits, Krylov counts
