@@ -54,7 +54,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    four medians and the value bitwise the plain version's (four
    ``torch.sort``s and the scalar operations), bitwise repeatable, one
    launch a call; times as above beside the plain version's, no library
-   call, a one-row launch as the floor;
+   call, a one-row launch as the floor.  Then the 1D cyclic-reduction
+   apply (the EDL's (5,991, 7) in f64 and f32, three f64 lanes of it, the
+   1D reaction-diffusion's (5,991, 5)): within 1e-13 (f64) / 1e-5 (f32)
+   of its plain version, bitwise repeatable, one launch a call, each lane
+   bitwise its one-lane launch; times as above beside the plain
+   version's, a one-row apply as the floor; and one carried episode of
+   the benchmark cell ``edl_mpnp.carried20`` per OHP voltage through the
+   kernel and through the plain version: the same Newton counts, the
+   largest state difference printed;
 4. the paths, each with every launch count (all five kernels) set to 0
    before it and read after it; per-step wall time, Newton and linear
    iterations, host syncs and kernel launches; outputs present and finite;
@@ -669,6 +677,17 @@ SECHENOV_RECORDS = [
     ("sechenov_f64_gmpnp", "GMPNP", "pore_3d carried"),
     ("sechenov_f64_rxn_diff_3d", "rxn_diff", "rxn_diff_3d carried"),
 ]
+#: the 1D cyclic-reduction apply at the paths' shapes (L_n = 50 um):
+#: (record name, N, f, lanes or None, dtype, phase-4 path or None: no path
+#: of phase 4 applies that shape)
+CR_APPLY_RECORDS = [
+    ("cr_apply_f64_edl", 5991, 7, None, torch.float64, "edl_1d carried"),
+    ("cr_apply_f64_edl_lanes", 5991, 7, LANES, torch.float64, None),
+    ("cr_apply_f32_edl", 5991, 7, None, torch.float32, "tridiag_mp_solve"),
+    ("cr_apply_f64_rxn_diff_1d", 5991, 5, None, torch.float64, None),
+]
+#: the CR apply against its plain version (another order of summation)
+CR_APPLY_TOL = {torch.float32: 1e-5, torch.float64: 1e-13}
 HOT_SOURCES = {
     "segment_sum": ("gmpnp_tpu_torch/csrc/segment_sum.cu",
                     "gmpnp_tpu/fem/assembly.py:167"),
@@ -678,6 +697,8 @@ HOT_SOURCES = {
                       "gmpnp_tpu/fem/assembly.py:332"),
     "sechenov": ("gmpnp_tpu_torch/csrc/sechenov.cu",
                  "gmpnp_tpu/models/pore_3d.py:203"),
+    "cr_apply": ("gmpnp_tpu_torch/csrc/cr_apply.cu",
+                 "gmpnp_tpu/solve/linear.py:234"),
 }
 
 
@@ -876,6 +897,147 @@ def check_sechenov(dev, rng):
             "launch_key": _shape_key((N, f, "float64")),
             "library": None, **ok, **rec}
     return records
+
+
+def cr_apply_bound(M, N, f, lanes, dtype):
+    """The factor read once (five (M - 1) f x f blocks and Binv_top a lane)
+    and rhs read and x written once, over the memory rate (the ~2 (5 M f^2)
+    f64 operations take far less)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    nbytes = lanes * ((5 * (M - 1) + 1) * f * f + 2 * N * f) * size
+    return {"bytes": nbytes, "bound_us": nbytes / HBM_BYTES_PER_S * 1e6,
+            "bound_by": "bytes"}
+
+
+def _cr_copy(fac):
+    from gmpnp_tpu_torch.solve.linear import CRFactors
+
+    return CRFactors(tuple(type(lev)(*(t.clone() for t in lev))
+                           for lev in fac.levels), fac.Binv_top.clone())
+
+
+def check_cr_apply(dev, rng):
+    """Phase 3, the 1D cyclic-reduction apply: at the paths' shapes (the
+    EDL's (5,991, 7) in f64 and f32, three lanes of it, the 1D
+    reaction-diffusion's (5,991, 5)) the kernel within CR_APPLY_TOL of its
+    plain version (the former eager apply), bitwise repeatable, one launch
+    a call, each lane bitwise its single-lane launch; then the times, the
+    plain version beside them (no library call computes it).  Returns the
+    timed records keyed by name."""
+    from gmpnp_tpu_torch.ops import cr_apply, cr_apply_reference
+    from gmpnp_tpu_torch.solve.linear import block_tridiag_factor_cr
+    from gmpnp_tpu_torch.testing import tridiag_bands
+
+    cra = importlib.import_module("gmpnp_tpu_torch.ops.cr_apply")
+    records = {}
+    for name, N, f, lanes, dtype, path in CR_APPLY_RECORDS:
+        lo, di, up, rhs = tridiag_bands(N, f, lanes,
+                                        seed=int(rng.integers(0, 2 ** 31)),
+                                        dtype=dtype, device=dev)
+        fac = block_tridiag_factor_cr(lo, di, up)
+        n0 = sum(_launch_counts("cr_apply").values())
+        got = cr_apply(fac.levels, fac.Binv_top, rhs)
+        again = cr_apply(fac.levels, fac.Binv_top, rhs)
+        launched = sum(_launch_counts("cr_apply").values()) - n0
+        ref = cr_apply_reference(fac.levels, fac.Binv_top, rhs)
+        torch.cuda.synchronize()
+        rel = float((got - ref).norm() / ref.norm())
+        ok = {"within_tol": rel <= CR_APPLY_TOL[dtype],
+              "bitwise_repeatable": torch.equal(got, again),
+              "one_launch_a_call": launched == 2}
+        if lanes:
+            ok["lanes_bitwise_one_lane"] = all(torch.equal(got[v], cr_apply(
+                [type(lev)(*(t[v] for t in lev)) for lev in fac.levels],
+                fac.Binv_top[v], rhs[v])) for v in range(lanes))
+        L = len(fac.levels)
+        plan = cra.cr_plan(L, f)
+        shape = ((lanes,) if lanes else ()) + (N, f)
+        dname = str(dtype).replace("torch.", "")
+        line = (f"kernel cr_apply {name} {'x'.join(map(str, shape))} {dname}: "
+                f"{ok} max_rel_l2={rel!r} plan={plan._asdict()}")
+        print(line, flush=True)
+        if not all(ok.values()):
+            raise AssertionError(line)
+        bound = cr_apply_bound(2 ** L, N, f, lanes or 1, dtype)
+        copies = max(1, -(-COLD_ROTATION_BYTES // bound["bytes"]))
+        facs = [fac] + [_cr_copy(fac) for _ in range(copies - 1)]
+        rec = hot_times(
+            f"cr_apply {name} {'x'.join(map(str, shape))} {dname}",
+            bound["bytes"], bound,
+            lambda i: cr_apply(facs[i].levels, facs[i].Binv_top, rhs),
+            lambda i: cr_apply_reference(facs[i].levels, facs[i].Binv_top,
+                                         rhs), None, copies)
+        records[name] = {
+            "shape": list(shape), "dtype": dname, "path": path,
+            "launch_key": _shape_key(shape + (dname,)),
+            "max_rel_l2": rel, "plan": plan._asdict(), "library": None,
+            **ok, **rec}
+        del facs
+    return records
+
+
+@contextlib.contextmanager
+def cr_plain_route():
+    """solve.linear.block_tridiag_apply_cr through the plain version (the
+    eager apply the kernel replaced), on every device."""
+    from gmpnp_tpu_torch.solve import linear
+
+    saved = getattr(linear, "_cr_apply", None)
+    if saved is None:   # a checkout before the kernel: the eager apply
+        yield
+        return
+    linear._cr_apply = importlib.import_module(
+        "gmpnp_tpu_torch.ops.cr_apply").cr_apply_reference
+    try:
+        yield
+    finally:
+        linear._cr_apply = saved
+
+
+def cr_apply_episodes(dev_name):
+    """One carried EDL episode per OHP voltage of the benchmark's cell
+    ``edl_mpnp.carried20`` (its configuration and workload files), through
+    the kernel and through the plain version: the Newton counts must be
+    equal; the largest state difference is printed."""
+    from benchmark.harness.program import program_config
+
+    def load(*parts):
+        with open(os.path.join(ROOT, "benchmark", *parts)) as fh:
+            return json.load(fh)
+
+    cfg = load("configs", "edl_mpnp_50um.json")
+    wl = load("workloads", "edl_mpnp.carried20.json")
+    n_steps = wl["run"]["n_steps"]
+    for volt in wl["voltages"]:
+        mod, pcfg = program_config(cfg, wl, volt)
+        runs = {}
+        for route in ("kernel", "plain"):
+            ctx = cr_plain_route() if route == "plain" else (
+                contextlib.nullcontext())
+            with ctx:
+                n0 = sum(_launch_counts("cr_apply").values())
+                prog = mod.build(pcfg, device=dev_name)
+                t0 = time.perf_counter()
+                _, hist, st, _ = prog.run(n_steps=n_steps)
+                torch.cuda.synchronize()
+                runs[route] = (np.asarray(st.newton_iters),
+                               torch.stack(list(hist)).cpu(),
+                               time.perf_counter() - t0,
+                               sum(_launch_counts("cr_apply").values()) - n0)
+        (it_k, h_k, s_k, n_k), (it_p, h_p, s_p, n_p) = (runs["kernel"],
+                                                        runs["plain"])
+        diff = float((h_k - h_p).abs().max())
+        scale = float(h_p.abs().max())
+        line = (f"cr_apply episode edl_mpnp.carried20 V={volt}: "
+                f"newton_equal={bool(np.array_equal(it_k, it_p))} "
+                f"newton_kernel={int(it_k.sum())} "
+                f"newton_plain={int(it_p.sum())} "
+                f"max_state_diff={diff!r} max_state={scale!r} "
+                f"wall_s kernel/plain={s_k!r}/{s_p!r} "
+                f"launches kernel/plain={n_k}/{n_p}")
+        print(line, flush=True)
+        if not np.array_equal(it_k, it_p) or n_k <= 0 or n_p != 0:
+            raise AssertionError(line)
 
 
 def _launch_counts(kernel):
@@ -1221,8 +1383,19 @@ def launch_floors(dev):
 
         floors["sechenov", torch.float64] = graph_us(
             [lambda: sechenov_co2(u[:1], prog.sechenov)])
+    ops_mod = importlib.import_module("gmpnp_tpu_torch.ops")
+    if hasattr(ops_mod, "cr_apply"):   # not in checkouts before it
+        from gmpnp_tpu_torch.solve.linear import block_tridiag_factor_cr
+
+        for dtype in (torch.float32, torch.float64):
+            one = torch.ones((1, 1, 1), dtype=dtype, device=dev)
+            fac = block_tridiag_factor_cr(one * 0, one, one * 0)
+            b = torch.ones((1, 1), dtype=dtype, device=dev)
+            floors["cr_apply", dtype] = graph_us(
+                [lambda: ops_mod.cr_apply(fac.levels, fac.Binv_top, b)])
     print(f"kernel launch floors (segment_sum one value, block_inv one 1x1 "
-          f"block, pore_residual one element, sechenov one row): "
+          f"block, pore_residual one element, sechenov one row, cr_apply "
+          f"one row): "
           f"{ {f'{k} {t}': v for (k, t), v in floors.items()} }", flush=True)
     return floors
 
@@ -1240,6 +1413,9 @@ def check_hot_kernels(dev, library=True):
     if hasattr(importlib.import_module("gmpnp_tpu_torch.ops"),
                "sechenov_co2"):   # not in checkouts before it
         records.update(check_sechenov(dev, rng))
+    if hasattr(importlib.import_module("gmpnp_tpu_torch.ops"),
+               "cr_apply"):   # not in checkouts before it
+        records.update(check_cr_apply(dev, rng))
     if hasattr(importlib.import_module("gmpnp_tpu_torch.testing"),
                "edge_segment_tables"):   # not in checkouts before it
         check_segment_sum_edges(dev, rng)
@@ -1289,6 +1465,8 @@ def hot_kernel_records(hot, launches):
     shape (at least one, or the run fails)."""
     out = []
     for name, rec in hot.items():
+        if rec["path"] is None:   # a shape no phase-4 path runs
+            continue
         kernel = _kernel_of(name)
         n = launches[rec["path"]][kernel]["shapes"].get(rec["launch_key"], 0)
         if n <= 0:
@@ -2903,10 +3081,10 @@ def profile_calls(dev, mesh_resolution=None, reps=5):
 
 @contextlib.contextmanager
 def plain_route():
-    """FemSpace's segment sums and pore element residuals and the solvers'
-    block inverses through the torch ops the kernels replaced (the plain
-    versions; FemSpace's vmapped element loop for the element residuals),
-    for comparing the two routes inside one run."""
+    """FemSpace's segment sums and pore element residuals, the solvers'
+    block inverses and the 1D CR apply through the torch ops the kernels
+    replaced (the plain versions; FemSpace's vmapped element loop for the
+    element residuals), for comparing the two routes inside one run."""
     from gmpnp_tpu_torch.fem import assembly
     from gmpnp_tpu_torch.ops import block_inv_reference, segment_sum_reference
     from gmpnp_tpu_torch.solve import smallblock
@@ -2918,7 +3096,8 @@ def plain_route():
     smallblock._block_inv = block_inv_reference
     space.uses_residual_kernel = lambda self, form, device: False
     try:
-        yield
+        with cr_plain_route():
+            yield
     finally:
         (assembly.segment_sum_op, smallblock._block_inv,
          space.uses_residual_kernel) = saved
@@ -3107,6 +3286,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     records = check_kernels(dev)
     hot = check_hot_kernels(dev)
+    cr_apply_episodes("cuda")
     print(f"phase 3 kernels: {time.perf_counter() - t0!r} s", flush=True)
     launches = {}
     for phase in (main_path, repeat_paths, checkpoint_paths, sweep_paths,

@@ -31,6 +31,12 @@ Kernels:
   ``jnp.median`` and ``co2_saturation_conc`` of
   ``gmpnp_tpu/models/pore_3d.py``'s ``_theta_of_carry``:
   ``models.pore_3d.Pore3DProgram._theta_of_carry`` on CUDA tensors.
+- cr_apply: the 1D block cyclic-reduction apply, every level in one
+  launch (``csrc/cr_apply.cu``) — the counterpart of
+  ``gmpnp_tpu/solve/linear.py::block_tridiag_apply_cr``:
+  ``solve.linear.block_tridiag_apply_cr`` on CUDA tensors (the carried 1D
+  chord step, the f32 preconditioner of ``tridiag_mp_solve``, over lanes
+  too).
 
 ``COUNTERS`` maps each kernel's name to its (``LAUNCHES``,
 ``SHAPE_LAUNCHES``): launches per dtype and per shape, counted where the
@@ -40,6 +46,9 @@ kernel is launched.
 from gmpnp_tpu_torch.ops.block_inv import LAUNCHES as _BLOCK_INV_LAUNCHES
 from gmpnp_tpu_torch.ops.block_inv import SHAPE_LAUNCHES as _BLOCK_INV_SHAPES
 from gmpnp_tpu_torch.ops.block_inv import block_inv, block_inv_reference
+from gmpnp_tpu_torch.ops.cr_apply import LAUNCHES as _CR_APPLY_LAUNCHES
+from gmpnp_tpu_torch.ops.cr_apply import SHAPE_LAUNCHES as _CR_APPLY_SHAPES
+from gmpnp_tpu_torch.ops.cr_apply import cr_apply, cr_apply_reference
 from gmpnp_tpu_torch.ops.ell_spmv import (
     LAUNCHES, SHAPE_LAUNCHES, ell_spmv, ell_spmv_reference)
 from gmpnp_tpu_torch.ops.pore_residual import LAUNCHES as _PORE_LAUNCHES
@@ -61,10 +70,12 @@ COUNTERS = {
     "block_inv": (_BLOCK_INV_LAUNCHES, _BLOCK_INV_SHAPES),
     "pore_residual": (_PORE_LAUNCHES, _PORE_SHAPES),
     "sechenov": (_SECHENOV_LAUNCHES, _SECHENOV_SHAPES),
+    "cr_apply": (_CR_APPLY_LAUNCHES, _CR_APPLY_SHAPES),
 }
 
 __all__ = ["COUNTERS", "LAUNCHES", "SHAPE_LAUNCHES", "SechenovConstants",
-           "block_inv", "block_inv_reference", "ell_spmv",
+           "block_inv", "block_inv_reference", "cr_apply",
+           "cr_apply_reference", "ell_spmv",
            "ell_spmv_reference", "pore_residual", "pore_residual_reference",
            "sechenov_co2", "sechenov_co2_reference", "segment_sum",
            "segment_sum_op", "segment_sum_reference"]

@@ -22,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(_PKG)
 SOURCES = tuple(os.path.join(_PKG, "csrc", name) for name in (
     "ell_spmv.cu", "segment_sum.cu", "block_inv.cu", "pore_residual.cu",
-    "sechenov.cu"))
+    "sechenov.cu", "cr_apply.cu"))
 BUILD_DIR = os.path.join(_REPO, "build", "torch_kernels")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: flags of each source's compile (-Xptxas -v: registers, shared memory and
@@ -51,7 +51,10 @@ _SIGNATURES = (
         # lane_out, rows_per_warp, depth, stream
         ("segment_sum", [_P] * 5 + [_LL, _I, _I, _LL, _LL, _I, _I, _P]),
         # A, out, batch, f, blocks_per_warp, stream
-        ("block_inv", [_P, _P, _LL, _I, _I, _P]))
+        ("block_inv", [_P, _P, _LL, _I, _I, _P]),
+        # ptrs, strides, levels, rhs, out, ws, n, f, lanes, cluster, tail,
+        # stream
+        ("cr_apply", [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]))
     for t in ("f32", "f64"))
 
 _lib = None

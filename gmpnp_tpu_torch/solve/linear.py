@@ -35,8 +35,9 @@ import numpy as np
 import torch
 
 from gmpnp_tpu_torch.fem.assembly import BlockELL
+from gmpnp_tpu_torch.ops.cr_apply import cr_apply as _cr_apply
 from gmpnp_tpu_torch.solve.smallblock import (
-    block_inv, block_mv, block_solve, eye_row, lane_by_lane, range_clamp,
+    block_inv, block_mv, block_solve, eye_row, range_clamp,
     triangular_solve_upper)
 from gmpnp_tpu_torch.sync import to_host
 from gmpnp_tpu_torch.utils.profiling import span
@@ -237,35 +238,10 @@ def block_tridiag_factor_cr(lower, diag, upper) -> CRFactors:
 @span("linear.solve")
 def block_tridiag_apply_cr(factors: CRFactors, rhs: torch.Tensor):
     """Solve with a prepared CR factorization.  rhs: (N, f) or (V, N, f)
-    in the factorization's dtype (padded rows solve to 0 exactly)."""
-    lead = rhs.shape[:-2]
-    N, f = rhs.shape[-2:]
-    M = 2 ** len(factors.levels)
-    zv1 = torch.zeros((*lead, 1, f), dtype=rhs.dtype, device=rhs.device)
-    D = rhs
-    if M > N:
-        D = torch.cat([D, zv1.expand(*lead, M - N, f)], -2)
-
-    odd_rhs = []
-    for lev in factors.levels:
-        D_ev, D_od = D[..., 0::2, :], D[..., 1::2, :]
-        odd_rhs.append(D_od)
-        D_left = torch.cat([zv1, D_od[..., :-1, :]], -2)
-        D = range_clamp(D_ev - block_mv(lev.alpha, D_left)
-                        - block_mv(lev.gamma, D_od))
-
-    # the top solve lane by lane: the single lane's matrix-vector call, so
-    # that each lane's apply has its bits
-    x = lane_by_lane(torch.matmul, bool(lead), factors.Binv_top,
-                     D[..., 0, :])[..., None, :]      # (1, f)
-    for lev, D_od in zip(reversed(factors.levels), reversed(odd_rhs)):
-        x_right = torch.cat([x[..., 1:, :], zv1], -2)
-        r_od = range_clamp(D_od - block_mv(lev.A_od, x)
-                           - block_mv(lev.C_od, x_right))
-        x_odd = range_clamp(block_mv(lev.Binv_od, r_od))
-        x = torch.stack([x, x_odd], dim=-2).reshape(
-            *lead, 2 * x.shape[-2], f)
-    return x[..., :N, :]
+    in the factorization's dtype (padded rows solve to 0 exactly).  On
+    CUDA tensors one launch of ``ops.cr_apply`` walks every level, all
+    lanes included; on CPU tensors its plain version."""
+    return _cr_apply(factors.levels, factors.Binv_top, rhs)
 
 
 @span("linear.solve")

@@ -168,3 +168,22 @@ def pore_states(prog, seed: int, scale: float = 1.0):
     up[:, ns:] = 0.5 * rng.normal(size=(N, f - ns))
     return (torch.as_tensor(u, device=prog.device),
             torch.as_tensor(up, device=prog.device))
+
+
+def tridiag_bands(N: int, f: int, lanes: Optional[int] = None,
+                  seed: int = 9, dtype=torch.float64, device=None):
+    """Seeded block-tridiagonal bands and a right-hand side for the 1D
+    cyclic-reduction checks: (lower, diag, upper, rhs), each (N, f, f) /
+    (N, f), or over ``lanes`` (V, N, f, f) / (V, N, f); off-diagonal blocks
+    0.2 N(0, 1), diagonal blocks 0.2 N(0, 1) + 3 I (block diagonally
+    dominant), lower[0] and upper[N-1] zero."""
+    rng = np.random.default_rng(seed)
+    lead = () if lanes is None else (lanes,)
+    lower = rng.normal(size=(*lead, N, f, f)) * 0.2
+    upper = rng.normal(size=(*lead, N, f, f)) * 0.2
+    diag = rng.normal(size=(*lead, N, f, f)) * 0.2 + 3.0 * np.eye(f)
+    lower[..., 0, :, :] = 0.0
+    upper[..., -1, :, :] = 0.0
+    rhs = rng.normal(size=(*lead, N, f))
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device)
+                 for a in (lower, diag, upper, rhs))

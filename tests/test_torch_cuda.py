@@ -1,6 +1,7 @@
 """The port on a CUDA card: each kernel against its plain version (the
 block-ELL matvec, the sorted-segment sum, the batched block inverse, the
-pore's element residuals and its Sechenov value, bitwise where the
+pore's element residuals and its Sechenov value, the 1D cyclic-reduction
+apply (bitwise repeatable, each lane its single-lane bits), bitwise where the
 kernel's rounding is the plain version's; a whole carried pore episode
 through the Sechenov kernel bit for bit its plain version's), the 1D cyclic reduction on the card against the CPU, a
 short transient on the card against the same transient on the CPU, and
@@ -16,7 +17,8 @@ gmpnp_tpu, so they run on a machine that has only PyTorch:
 Tolerances: the kernel in f32 1e-5 and in f64 1e-12 relative L2 (another
 summation order; the pore residual kernel per field, also FMA
 contraction); the CR factor + apply in f64 1e-12 and in f32 1e-5
-(another summation order in the small matmuls); card vs CPU states 1e-6
+(another summation order in the small matmuls), the CR apply kernel
+against its plain version 1e-13 / 1e-5 (the same); card vs CPU states 1e-6
 relative L2 (the f32-chord band: the chord directions are f32 GMRES
 solves); Krylov solves card vs CPU: the same converged flag, iterations
 within 10% (another summation order in every dot product) and x within
@@ -169,25 +171,165 @@ def test_kernel_lanes_bitwise_per_lane(cuda_device, V, N, K, f, dtype, tol):
 def test_cr_factor_apply_card_matches_cpu(cuda_device, dtype, tol):
     from gmpnp_tpu_torch.solve.linear import (
         block_tridiag_apply_cr, block_tridiag_factor_cr)
-    from gmpnp_tpu_torch.testing import rel_l2
+    from gmpnp_tpu_torch.testing import rel_l2, tridiag_bands
 
-    rng = np.random.default_rng(9)
-    N, f = 5991, 7
-    lower = rng.normal(size=(N, f, f)) * 0.2
-    upper = rng.normal(size=(N, f, f)) * 0.2
-    diag = rng.normal(size=(N, f, f)) * 0.2 + 3.0 * np.eye(f)
-    lower[0] = 0.0
-    upper[-1] = 0.0
-    rhs = rng.normal(size=(N, f))
     out = {}
     for dev in (cuda_device, "cpu"):
-        bands = [torch.as_tensor(a, dtype=dtype, device=dev)
-                 for a in (lower, diag, upper, rhs)]
+        bands = tridiag_bands(5991, 7, seed=9, dtype=dtype, device=dev)
         fac = block_tridiag_factor_cr(*bands[:3])
         x = block_tridiag_apply_cr(fac, bands[3])
         assert x.dtype == dtype and x.device.type == torch.device(dev).type
         out[str(dev)] = x.cpu().numpy()
     assert rel_l2(out["cuda"], out["cpu"]) <= tol
+
+
+#: the CR apply kernel against its plain version on the card (another
+#: order of summation in the f-term products; measured on an H100 at most
+#: 2.2e-16 in f64 and 1.1e-7 in f32 over the cases below)
+CR_APPLY_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+
+
+def _cr_system(N, f, lanes, dtype, device, seed=9):
+    from gmpnp_tpu_torch.solve.linear import block_tridiag_factor_cr
+    from gmpnp_tpu_torch.testing import tridiag_bands
+
+    lo, di, up, rhs = tridiag_bands(N, f, lanes, seed=seed, dtype=dtype,
+                                    device=device)
+    return block_tridiag_factor_cr(lo, di, up), rhs
+
+
+def _cr_lane(fac, v):
+    """Lane v of a lane-batched CR factorization, as a single-lane one."""
+    from gmpnp_tpu_torch.solve.linear import CRFactors
+
+    return CRFactors(tuple(type(lev)(*(t[v] for t in lev))
+                           for lev in fac.levels), fac.Binv_top[v])
+
+
+@pytest.mark.parametrize("V", [None, 3])
+@pytest.mark.parametrize("N", [1, 2, 3, 1000, 5991, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("f", [1, 5, 7, 16])
+def test_cr_apply_kernel_matches_plain_version(cuda_device, f, dtype, N, V):
+    from gmpnp_tpu_torch.ops import COUNTERS, cr_apply_reference
+    from gmpnp_tpu_torch.solve.linear import block_tridiag_apply_cr
+
+    fac, rhs = _cr_system(N, f, V, dtype, cuda_device)
+    launches, shapes = COUNTERS["cr_apply"]
+    key = ((V,) if V else ()) + (N, f, str(dtype).replace("torch.", ""))
+    n0, k0 = launches[dtype], shapes.get(key, 0)
+    x = block_tridiag_apply_cr(fac, rhs)
+    again = block_tridiag_apply_cr(fac, rhs)
+    ref = cr_apply_reference(fac.levels, fac.Binv_top, rhs)
+    torch.cuda.synchronize()
+    assert launches[dtype] == n0 + 2 and shapes[key] == k0 + 2
+    assert x.shape == rhs.shape and x.dtype == dtype
+    assert torch.equal(x, again)
+    rel = float((x - ref).norm() / ref.norm())
+    print(f"cr_apply f={f} {dtype} N={N} V={V}: max_rel_l2={rel!r}")
+    assert rel <= CR_APPLY_TOL[dtype]
+    for v in range(V or 0):
+        one = block_tridiag_apply_cr(_cr_lane(fac, v), rhs[v])
+        assert torch.equal(x[v], one)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cr_apply_kernel_nan_and_range_where_plain_puts_them(cuda_device,
+                                                             dtype):
+    """Right-hand sides with rows beyond 1e16 (on a system whose diagonal
+    is scaled by 0.1, so that the clamps reach the solution: some 860 of
+    its values sit at +-1e16) and with a NaN (it spreads to every row):
+    NaNs and clamped values exactly where the plain version has them, the
+    other values within its bar; in f32 1e-4 here, not 1e-5, since the
+    two orders of summation drift apart with this system's worse
+    conditioning (measured 3.1e-5 on an H100; f64 within 1e-13)."""
+    from gmpnp_tpu_torch.ops import cr_apply, cr_apply_reference
+    from gmpnp_tpu_torch.ops.block_inv import RANGE_LIM
+    from gmpnp_tpu_torch.solve.linear import block_tridiag_factor_cr
+    from gmpnp_tpu_torch.testing import tridiag_bands
+
+    lo, di, up, rhs = tridiag_bands(5991, 7, dtype=dtype, device=cuda_device)
+    fac = block_tridiag_factor_cr(lo, di * 0.1, up)
+    big = rhs.clone()
+    big[100:140] *= 1e20
+    nan = rhs.clone()
+    nan[3000, 2] = float("nan")
+    lim = torch.tensor(RANGE_LIM, dtype=dtype)
+    out = {}
+    for name, b in (("big", big), ("nan", nan)):
+        x = cr_apply(fac.levels, fac.Binv_top, b)
+        ref = cr_apply_reference(fac.levels, fac.Binv_top, b)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isnan(x), torch.isnan(ref))
+        assert torch.equal(x.abs() == lim, ref.abs() == lim)
+        fin = ~torch.isnan(ref)
+        if fin.any():
+            bar = 1e-4 if dtype == torch.float32 else CR_APPLY_TOL[dtype]
+            assert float((x[fin] - ref[fin]).norm()
+                         / ref[fin].norm()) <= bar
+        out[name] = x
+    assert (out["big"].abs() == lim).sum() > 100
+    assert torch.isnan(out["nan"]).all()
+
+
+def test_cr_apply_kernel_on_a_side_stream(cuda_device):
+    from gmpnp_tpu_torch.solve.linear import block_tridiag_apply_cr
+
+    fac, rhs = _cr_system(5991, 7, 3, torch.float64, cuda_device)
+    want = block_tridiag_apply_cr(fac, rhs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = block_tridiag_apply_cr(fac, rhs)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_cr_apply_kernel_refuses_what_it_does_not_take(cuda_device):
+    from gmpnp_tpu_torch.ops import cr_apply
+
+    fac, rhs = _cr_system(37, 5, None, torch.float64, cuda_device)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        cr_apply(fac.levels, fac.Binv_top, rhs.to(torch.float16))
+    with pytest.raises(TypeError, match="rhs torch.float32"):
+        cr_apply(fac.levels, fac.Binv_top, rhs.float())
+    on_cpu = [type(lev)(*(t.cpu() for t in lev)) for lev in fac.levels]
+    with pytest.raises(ValueError, match="on cpu"):
+        cr_apply(on_cpu, fac.Binv_top.cpu(), rhs)
+    z = dict(dtype=torch.float64, device=cuda_device)
+    wide = [type(lev)(*(torch.zeros((64 >> (i + 1), 17, 17), **z)
+                        for _ in lev)) for i, lev in enumerate(fac.levels)]
+    with pytest.raises(ValueError, match="f <= 16"):
+        cr_apply(wide, torch.zeros((17, 17), **z), torch.zeros((37, 17), **z))
+    with pytest.raises(ValueError, match="rows"):
+        cr_apply(fac.levels[:-1], fac.Binv_top, rhs)
+    with pytest.raises(ValueError, match="contiguous"):
+        cr_apply(fac.levels, fac.Binv_top, rhs.t().contiguous().t())
+
+
+def test_cr_apply_one_launch_an_apply_on_the_edl_path(cuda_device,
+                                                      monkeypatch):
+    from gmpnp_tpu_torch.models import edl_1d
+    from gmpnp_tpu_torch.ops import COUNTERS
+    from gmpnp_tpu_torch.solve import timeloop
+
+    calls = []
+    apply = timeloop.block_tridiag_apply_cr
+
+    def counted(*a):
+        calls.append(1)
+        return apply(*a)
+
+    monkeypatch.setattr(timeloop, "block_tridiag_apply_cr", counted)
+    cfg = edl_1d.EDL1DConfig(L_n=1e-6)
+    cfg = dataclasses.replace(cfg, linear=dataclasses.replace(
+        cfg.linear, kind="tridiag_cr", refresh="carried"))
+    launches = COUNTERS["cr_apply"][0]
+    n0 = sum(launches.values())
+    _, _, stats, _ = edl_1d.build(cfg, device=cuda_device).run(n_steps=3)
+    assert np.asarray(stats.converged).all()
+    assert sum(launches.values()) - n0 == len(calls) > 0
 
 
 def test_carried_transient_card_matches_cpu(cuda_device):
