@@ -21,6 +21,9 @@ keeps ``jacfwd`` of the torch integrand, and the element loop
 ``FemSpace.residual`` and ``residual_lanes`` run in ``assembly.residual``
 spans, ``jacobian`` and ``jacobian_lanes`` in ``assembly.jacobian`` spans
 (``utils.profiling``; a lane call holds its vmapped single-lane one).
+Inside them, the facet residual and facet Jacobian of each boundary marker
+whose form has a flux run in an ``assembly.facets`` span (attribute
+``marker``); a form without boundary fluxes opens none.
 """
 
 from __future__ import annotations
@@ -489,13 +492,14 @@ class FemSpace:
             fn = form.boundary.get(marker)
             if fn is None:
                 continue
-            tab = d["facets"][marker]
-            rf = vmap(
-                lambda uf, mf, xf: self._local_facet_residual(
-                    fn, uf, mf, tab["shape"], tab["weights"], xf, theta)
-            )(u[tab["nodes"]], tab["meas"], tab["xq"])
-            r = r + _segment_reduce(rf.reshape(-1, self.n_fields),
-                                    *tab["res_tables"])
+            with span("assembly.facets", marker=marker):
+                tab = d["facets"][marker]
+                rf = vmap(
+                    lambda uf, mf, xf: self._local_facet_residual(
+                        fn, uf, mf, tab["shape"], tab["weights"], xf, theta)
+                )(u[tab["nodes"]], tab["meas"], tab["xq"])
+                r = r + _segment_reduce(rf.reshape(-1, self.n_fields),
+                                        *tab["res_tables"])
         return r
 
     # -- lane-batched assembly (sweep lanes) ---------------------------------
@@ -590,10 +594,12 @@ class FemSpace:
                 J = jacfwd(f_res)(uf)
                 return J.permute(0, 2, 1, 3).reshape(-1)
 
-            Jf = vmap(local_fjac)(u[tab["nodes"]], tab["meas"], tab["xq"])
-            Fc, fnv = tab["nodes"].shape
-            blocks = blocks + _segment_reduce(
-                Jf.reshape(Fc * fnv * fnv, f * f), *tab["jac_tables"])
+            with span("assembly.facets", marker=marker):
+                Jf = vmap(local_fjac)(u[tab["nodes"]], tab["meas"],
+                                      tab["xq"])
+                Fc, fnv = tab["nodes"].shape
+                blocks = blocks + _segment_reduce(
+                    Jf.reshape(Fc * fnv * fnv, f * f), *tab["jac_tables"])
 
         flat = blocks.reshape(N, K, f, f).transpose(1, 2).reshape(N, f, K * f)
         return BlockELL(adj=d["adj"], flat=flat, diag_slot=d["diag_slot"])

@@ -567,6 +567,12 @@ def make_carried_step(
       factor is refreshed at the accepted state; or
     - it converges but needs more than ``linear_cfg.refresh_iters``
       iterations (the factor is refreshed for the next step).
+
+    The re-solve and its refactor run in a ``step.fallback`` span.  Its
+    ``StepStats`` hold the re-solve's iterations alone; the abandoned chord
+    attempts are counted in ``chord.failed``, their Newton and Krylov
+    iterations in ``chord.failed_iters`` and ``chord.failed_krylov``
+    (``utils.profiling.count``: host integers the step already holds).
     """
     _validate_linear_config(linear_cfg)
     if linear_cfg.kind not in ("slab_direct", "tridiag_cr"):
@@ -665,11 +671,17 @@ def make_carried_step(
         if res1.converged:
             res, prep_used = res1, prep
         else:
+            # the abandoned attempt's work, which StepStats leaves out
+            count("chord.failed")
+            count("chord.failed_iters", res1.iterations)
+            count("chord.failed_krylov", res1.linear_iters)
             # exact-Newton re-solve from the SAFE start
-            res = newton_solve(
-                residual, exact_lin_builder(bc, u_prev, theta), u0_safe,
-                max_iter=newton_cfg.max_iter, **_newton_kwargs(newton_cfg))
-            prep_used = prep_of(res.u, u_prev, theta, bc)
+            with span("step.fallback"):
+                res = newton_solve(
+                    residual, exact_lin_builder(bc, u_prev, theta), u0_safe,
+                    max_iter=newton_cfg.max_iter,
+                    **_newton_kwargs(newton_cfg))
+                prep_used = prep_of(res.u, u_prev, theta, bc)
             count("factors.fallback")
 
         # proactive refresh for the NEXT step when the stale factor made

@@ -30,10 +30,13 @@ checks it on the H100: a kernel's launch record lies inside the span that
 launched it, and its end inside the span that synchronised after it.
 
 ``count(name, n)`` adds to ``COUNTS``, always (an integer add, as
-``sync.SYNCS`` and ``ops.COUNTERS`` are).  The one family is the factor
-builds of ``solve.timeloop``, per lane and by reason: ``factors.init``,
-``factors.fallback`` and ``factors.refresh`` of the carried chord step,
-``factors.step`` and ``factors.iter`` of the refresh modes.  A trace
+``sync.SYNCS`` and ``ops.COUNTERS`` are).  Two families, both of
+``solve.timeloop``: the factor builds, per lane and by reason:
+``factors.init``, ``factors.fallback`` and ``factors.refresh`` of the
+carried chord step, ``factors.step`` and ``factors.iter`` of the refresh
+modes; and the carried step's abandoned chord attempts: ``chord.failed``,
+with their Newton and Krylov iterations in ``chord.failed_iters`` and
+``chord.failed_krylov``.  A trace
 reads these counters, ``sync.SYNCS`` / ``READS`` and the kernels' launches
 (``ops.COUNTERS``) at its start and end, and keeps the differences.
 

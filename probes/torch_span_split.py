@@ -29,7 +29,16 @@ written to ``<out>/<workload>.json``):
   ``traced_s``, what the traced episode added, its reading included;
 - ``bitwise``: the traced episode's first and last states equal the
   profiled episode's;
-- ``checks``: the plain reference's checks of the traced episode.
+- ``checks``: the plain reference's checks of the traced episode;
+- ``inclusive``: per span name of ``INCLUSIVE``, its calls, host seconds
+  and the device seconds of every operation launched inside it, nested
+  spans included (``step.fallback``: the carried step's exact re-solves
+  and refactors; ``assembly.facets``: the boundary facet terms), and
+  ``chord``: the device seconds of the linear solves outside every
+  ``step.fallback`` (the chord GMRES and the refreshes' factors);
+- ``chord_counts``: the traced episode's ``chord.failed``,
+  ``chord.failed_iters`` and ``chord.failed_krylov``, the abandoned
+  chord attempts that ``StepStats`` leaves out.
 """
 
 import argparse
@@ -43,9 +52,19 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 #: the program's spans (``gmpnp_tpu_torch/utils/profiling.py``'s users)
-SPANS = ("step", "step.update", "newton.iter", "assembly.residual",
-         "assembly.jacobian", "linear.factor", "linear.solve",
-         "linear.krylov", "host.read", "sweep.build", "sweep.batch")
+SPANS = ("step", "step.update", "step.fallback", "newton.iter",
+         "assembly.residual", "assembly.jacobian", "assembly.facets",
+         "linear.factor", "linear.solve", "linear.krylov", "host.read",
+         "sweep.build", "sweep.batch")
+#: spans whose device time is also summed with everything nested in them
+INCLUSIVE = ("step.fallback", "assembly.facets")
+CHORD_COUNTS = ("chord.failed", "chord.failed_iters", "chord.failed_krylov")
+#: the small sizes of the cells that ``benchmark/tests/small.py`` lacks
+SMALL_EXTRA = {
+    "rxndiff_pore.carried50": {
+        "program": {"mesh_resolution": [2, 10]},
+        "workload": {"run": {"n_steps": 3, "record_full": False}}},
+}
 READERS = ("assembly_device_ms_per_step", "factor_device_ms_per_step",
            "solve_device_ms_per_step", "assembly_host_ms_per_step",
            "host_wait_ms_per_step", "factors_per_step")
@@ -63,6 +82,51 @@ def same_states(a, b):
                 and np.array_equal(x[3], y[3]) and x[4] == y[4]):
             return False
     return True
+
+
+def traced_episode_kept(driver, sync, cuda):
+    """``program_trace.traced_program_episode``, also handing back what
+    the profiler recorded (the spans and the device operations)."""
+    from benchmark.harness import program_trace, record
+
+    volts, episode = driver.episodes()[0]
+    rec, out = record.Recorder(sync), {}
+    with rec.wrap_run(*driver.loop), program_trace.profiled_program(out,
+                                                                    cuda):
+        rec.begin(volts)
+        episode()
+        rec.finish()
+        sync()
+    return rec, program_trace.summary(out, rec.lane_steps), out
+
+
+def inclusive_split(out):
+    """{name: {calls, host_s, device_s}} for the spans of ``INCLUSIVE``,
+    and "chord": the device seconds of ``linear.*`` spans outside every
+    ``step.fallback``."""
+    from benchmark.harness import program_trace
+
+    spans = out["trace"].spans
+    own = program_trace.owners(out["device"], out["calls"], spans)
+    split = {n: {"calls": 0, "host_s": 0.0, "device_s": 0.0}
+             for n in INCLUSIVE}
+    split["chord"] = {"device_s": 0.0}
+    for s in spans:
+        if s.name in split:
+            split[s.name]["calls"] += 1
+            split[s.name]["host_s"] += (s.end_ns - s.start_ns) * 1e-9
+    for (start, end, *_), i in zip(out["device"], own):
+        names = set()
+        while i >= 0:
+            names.add(spans[i].name)
+            i = spans[i].parent
+        for n in INCLUSIVE:
+            if n in names:
+                split[n]["device_s"] += (end - start) * 1e-9
+        if ("step.fallback" not in names
+                and any(n.startswith("linear.") for n in names)):
+            split["chord"]["device_s"] += (end - start) * 1e-9
+    return split
 
 
 def main(argv=None):
@@ -89,8 +153,9 @@ def main(argv=None):
         from benchmark.tests.small import SMALL
 
         torch.set_num_threads(1)
-        cfg["program"].update(SMALL[args.workload].get("program", {}))
-        wl.update(SMALL[args.workload].get("workload", {}))
+        small = {**SMALL_EXTRA, **SMALL}[args.workload]
+        cfg["program"].update(small.get("program", {}))
+        wl.update(small.get("workload", {}))
     volts = bench.draw_voltages(wl, args.seed)
     print(bench.kernel_line(device), file=sys.stderr)
     driver = importlib.import_module(
@@ -109,8 +174,7 @@ def main(argv=None):
     profiled = record.Recorder(sync)
     prof = bench.traced_episode(driver, profiled, sync, cuda)
     t0 = time.perf_counter()
-    traced, program = program_trace.traced_program_episode(driver, sync,
-                                                           cuda)
+    traced, program, out = traced_episode_kept(driver, sync, cuda)
     traced_s = time.perf_counter() - t0
     data["program"] = program
     metrics = {name: importlib.import_module(
@@ -152,6 +216,9 @@ def main(argv=None):
         "spans": program["spans"], "counts": program["counts"],
         "bitwise": same_states(profiled.episodes[0], traced.episodes[0]),
         "checks": checks,
+        "inclusive": inclusive_split(out),
+        "chord_counts": {k: program["counts"].get(k, 0)
+                         for k in CHORD_COUNTS},
     }
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, f"{args.workload}.json"), "w") as fh:

@@ -9,9 +9,15 @@ program run with tracing on against tracing off.
   shaped as the benchmark's ``sweep3`` run with tracing on and off: the
   states are bitwise equal and the ``StepStats`` equal, and between them
   every span of the program appears but ``host.read``, which only a read
-  from a card opens (the card test below).
+  from a card opens (the card test below), and ``assembly.facets``, which
+  only a form with boundary fluxes opens (the rxn-diff pore below).
 - The carried factor counters: ``factors.init`` + ``refresh`` +
   ``fallback`` equals the number of ``slab_prepare`` calls.
+- The reaction-diffusion pore with a chord budget of one iteration: its
+  wall and exit fluxes open ``assembly.facets`` spans (the faithful GMPNP
+  pore none), ``chord.failed*`` count exactly the abandoned attempts'
+  Newton and Krylov iterations, each re-solve runs in a
+  ``step.fallback`` span, and the counts are the same traced or not.
 - On a card (``-m cuda``; skipped without one): a kernel's launch record
   lies inside the span that launched it, and its end, within 50 us,
   inside the span that synchronised after it: spans and the profiler's
@@ -38,9 +44,10 @@ from gmpnp_tpu_torch.utils.profiling import (  # noqa: E402
     count, span, trace_profile, tracing)
 
 #: every span the program opens
-SPANS = {"step", "step.update", "newton.iter", "assembly.residual",
-         "assembly.jacobian", "linear.factor", "linear.solve",
-         "linear.krylov", "host.read", "sweep.build", "sweep.batch"}
+SPANS = {"step", "step.update", "step.fallback", "newton.iter",
+         "assembly.residual", "assembly.jacobian", "assembly.facets",
+         "linear.factor", "linear.solve", "linear.krylov", "host.read",
+         "sweep.build", "sweep.batch"}
 
 
 @pytest.fixture
@@ -194,10 +201,17 @@ def test_carried_pore_same_bits_and_factor_counts():
     assert torch.equal(off[1], on[1]) and torch.equal(off[3], on[3])
     assert _stats_equal(off[2], on[2])
 
+    # the faithful GMPNP pore has no boundary flux: no facet span opens
     names = {s.name for s in tr.spans}
-    assert SPANS - names == {"host.read", "sweep.build", "sweep.batch"}
+    assert SPANS - names == {"host.read", "sweep.build", "sweep.batch",
+                             "assembly.facets"}
     c = tr.counts
     assert c.get("factors.init") == 1
+    # the abandoned chord attempt at the cold step, its re-solve in a span
+    # of its own (whose factors count as ``factors.fallback``)
+    fallbacks = sum(1 for s in tr.spans if s.name == "step.fallback")
+    assert fallbacks == c["chord.failed"] == 1
+    assert c["chord.failed_iters"] == 2
     assert c.get("factors.fallback", 0) > 0 and c.get("factors.refresh", 0)
     prepares = sum(1 for s in tr.spans if s.name == "linear.factor"
                    and s.attrs["kind"] == "slab_prepare")
@@ -217,6 +231,78 @@ def test_carried_pore_same_bits_and_factor_counts():
     assert all(own[i] >= 0 for i, s in enumerate(tr.spans))
 
 
+@pytest.fixture(scope="module")
+def rxn_chord_fails():
+    """The reaction-diffusion pore at (2, 10), carried, with a chord
+    budget of one iteration, so that the cold step's chord attempt fails:
+    the step with tracing off, then with it on, every ``newton_solve``
+    call and its result kept."""
+    cfg = pore_3d.Pore3DConfig(
+        physics="rxn_diff", L=50e-9, R=5e-9, mesh_resolution=(2, 10),
+        linear=timeloop.LinearConfig(kind="slab_direct", refresh="carried",
+                                     chord_dtype="f32", chord_max_iter=1))
+    prog = pore_3d.build(cfg, device="cpu")
+    calls = []
+    solve = timeloop.newton_solve
+
+    def spy(*a, **kw):
+        res = solve(*a, **kw)
+        calls.append((kw["max_iter"], res))
+        return res
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(timeloop, "newton_solve", spy)
+        before = dict(profiling.COUNTS)
+        off = prog.run(n_steps=1)
+        counts = {k: v - before.get(k, 0)
+                  for k, v in profiling.COUNTS.items()
+                  if v != before.get(k, 0)}
+        off_calls = list(calls)
+        with tracing() as tr:
+            on = prog.run(n_steps=1)
+    return off, on, counts, tr, off_calls
+
+
+def test_rxn_diff_facet_spans(rxn_chord_fails):
+    """Each residual and Jacobian of the rxn-diff pore opens one
+    ``assembly.facets`` span for the wall (S2) and one for the exit (S3),
+    inside its assembly span; the entry has no flux."""
+    *_, tr, _ = rxn_chord_fails
+    facets = [s for s in tr.spans if s.name == "assembly.facets"]
+    assert {s.attrs["marker"] for s in facets} == {pore_3d.S2, pore_3d.S3}
+    parents = [tr.spans[s.parent].name for s in facets]
+    assert set(parents) == {"assembly.residual", "assembly.jacobian"}
+    for name in ("assembly.residual", "assembly.jacobian"):
+        n = sum(1 for s in tr.spans if s.name == name)
+        assert parents.count(name) == 2 * n
+
+
+def test_rxn_diff_failed_chord_counted(rxn_chord_fails):
+    """``chord.failed*`` add up exactly the abandoned chord attempts (the
+    calls with the chord's budget that did not converge), and each is
+    followed by a ``step.fallback`` span."""
+    _, _, counts, tr, calls = rxn_chord_fails
+    failed = [res for max_iter, res in calls
+              if max_iter == 1 and not res.converged]
+    assert failed
+    assert counts["chord.failed"] == len(failed)
+    assert counts["chord.failed_iters"] == sum(r.iterations for r in failed)
+    assert counts["chord.failed_krylov"] == sum(r.linear_iters
+                                                for r in failed)
+    assert sum(r.linear_iters for r in failed) > 0
+    fallbacks = sum(1 for s in tr.spans if s.name == "step.fallback")
+    assert fallbacks == len(failed)
+
+
+def test_rxn_diff_counts_same_traced(rxn_chord_fails):
+    """Tracing on changes no state, no ``StepStats`` and no counter."""
+    off, on, counts, tr, _ = rxn_chord_fails
+    assert torch.equal(off[3], on[3]) and _stats_equal(off[2], on[2])
+    for key in ("chord.failed", "chord.failed_iters", "chord.failed_krylov",
+                "factors.init", "factors.fallback", "factors.refresh"):
+        assert counts.get(key, 0) == tr.counts.get(key, 0), key
+
+
 def test_sweep3_same_bits_and_spans():
     """Three lanes as one lane-batched transient (``chunk=3``, the carried
     factor downgraded to ``refresh='step'``), as the benchmark's
@@ -233,7 +319,7 @@ def test_sweep3_same_bits_and_spans():
                                           device="cpu")
     assert torch.equal(off[0], on[0]) and _stats_equal(off[1], on[1])
     names = {s.name for s in tr.spans}
-    assert SPANS - names == {"host.read"}
+    assert SPANS - names == {"host.read", "step.fallback", "assembly.facets"}
     batch = [s for s in tr.spans if s.name == "sweep.batch"]
     assert len(batch) == 1 and batch[0].attrs["lanes"] == 3
     assert {s.attrs["lanes"] for s in tr.spans if s.name == "step"} == {3}
